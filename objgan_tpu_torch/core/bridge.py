@@ -1,0 +1,78 @@
+"""Param bridge: a JAX (Linen) param tree (nested dicts of numpy arrays) onto a
+ported module.
+
+The ported modules name their submodules after the Linen modules, so a JAX
+path ``a/b/kernel`` lands on the torch parameter ``a.b.weight``. Layouts
+follow ``objgan_tpu/core/checkpoint.py:162-220`` (that module
+imports JAX, so the rules are restated here):
+
+* Dense ``kernel`` (in, out)          -> ``weight`` (out, in)
+* Conv ``kernel`` (kh, kw, in, out)   -> ``weight`` (out, in, kh, kw)
+* GroupNorm ``scale`` / ``bias``      -> ``weight`` / ``bias``
+* Embed ``embedding`` (num, features) -> ``weight``, unchanged
+* LSTM ``w_ih``, ``w_hh``, ``b`` (and ``fwd_*`` / ``bwd_*``) keep their
+  names and the JAX layout, single bias included.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = np.asarray(val)
+    return out
+
+
+def _to_torch(leaf: str, arr: np.ndarray):
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
+    if leaf in ("scale", "embedding"):
+        return "weight", arr
+    return leaf, arr
+
+
+def jax_to_torch(tree: Mapping) -> Dict[str, np.ndarray]:
+    """{torch state_dict name: array in torch layout} for a JAX param tree
+    (with or without its top-level ``params`` collection)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, arr in _flatten(tree).items():
+        *mods, leaf = path.split("/")
+        name, val = _to_torch(leaf, arr)
+        out[".".join([*mods, name])] = np.ascontiguousarray(val)
+    return out
+
+
+def load_jax_params(module: nn.Module, tree: Mapping) -> None:
+    """Copy a JAX param tree into ``module``'s parameters. Every parameter
+    must be covered exactly once, with the exact shape."""
+    converted = jax_to_torch(tree)
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(converted))
+    extra = sorted(set(converted) - set(params))
+    if missing or extra:
+        raise KeyError(f"JAX tree does not match {type(module).__name__}: "
+                       f"missing {missing[:8]}, unexpected {extra[:8]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            arr = converted[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch at {name}: JAX "
+                                 f"{arr.shape} vs torch {tuple(p.shape)}")
+            p.copy_(torch.tensor(arr))
