@@ -3,32 +3,57 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of ``cfg/eval_coco.yml``
-(batch 16, bf16 Stage C, 64 -> 128 -> 256 px) with fresh weights from
-``RNG_SEED``, and checks every hand-written kernel on its path:
+Drives the port's two main paths with fresh weights from ``RNG_SEED``:
+serving at the full width of ``cfg/eval_coco.yml`` (batch 16, bf16 Stage C,
+64 -> 128 -> 256 px) and the Stage-C train step at the full width of
+``cfg/coco_objgan.yml`` (batch 16, bf16 G and D, DF_DIM 64, 10 objects,
+ROI 7), and checks every hand-written kernel on them:
 
-1. device   the card as ``nvidia-smi`` and torch name it;
-2. build    K1 (``objgan_tpu_torch/csrc/groupnorm.cu``) compiled by nvcc;
-3. serve    ``run_serve`` answers 35 captions (3 batches of 16, the last
-            padded): 35 ordered responses with PNGs, finite images in
-            [-1, 1], and K1's launch count rises by the number of GroupNorm
-            layers per batch;
-4. kernels  every K1 call of one batch recorded and replayed through the
-            kernel and its plain PyTorch twin: agreement within the printed
-            tolerance, and both timed with CUDA events (median of 20), as
-            device time (CUDA-graph replay) and eager time;
-5. stages   synchronised wall time of Stage A, B and C of one batch;
-6. small    a tiny fp32 config end to end on the GPU against the same
-            weights and noise on the CPU (the twin path).
+1. build        K1 (``csrc/groupnorm.cu``) and K2/K3 (``csrc/roi_align.cu``)
+                compiled by nvcc, one process per source, in parallel;
+2. serve        ``run_serve`` answers 35 captions (3 batches of 16, the last
+                padded): 35 ordered responses with PNGs, finite images in
+                [-1, 1], and K1's launch count rises by the number of
+                GroupNorm layers per batch;
+3. kernels      every K1 call of one served batch replayed through the
+                kernel, its plain PyTorch twin and ``F.group_norm``;
+4. stages       synchronised wall time of Stage A, B and C of one batch;
+5. small        the tiny fp32 config served on the GPU against the same
+                weights and noise on the CPU (the twins);
+6. train        ``cli.train_gan`` (what ``python -m
+                objgan_tpu_torch.gan_main`` runs) takes TRAIN_STEPS steps
+                on synthetic batches, logging each: finite metrics, every
+                G, D and object-D parameter moved from the seed's initial
+                weights, and per step K1 launched once per GroupNorm call,
+                K2 three times (the object D on the real, the detached fake
+                and the fake images) and K3 three times (the backward of
+                each of those);
+7. profile      one more train step under ``torch.profiler``: the device's
+                busy share and the kernels that take its time;
+8. train_k1     every K1 call of one more train step (the bf16 G and
+                discriminators, the fp32 image encoder) replayed through
+                the kernel, its twin and ``F.group_norm``;
+9. roi          every K2/K3 call of that step replayed through the
+                kernels, their twins and, where torchvision is installed,
+                ``torchvision.ops.roi_align``;
+10. small_train one tiny fp32 train step on the GPU (K1 Function, K2, K3)
+                against the same weights, batch and noise on the CPU
+                (twins): metrics and every parameter's gradient.
 
-Any failure exits non-zero. So does a host without a CUDA device, before
-anything is printed to stdout. The last lines are the kernel summary JSON,
-the card's ``name, power.limit`` from nvidia-smi, and
-``{"ok": true, "device": {...}}``.
+Times are device time from CUDA events around a CUDA-graph replay, median
+of 20, unless a line says otherwise. The bounds count each input read once
+and each output written once at 3.35 TB/s, or the arithmetic at
+67 TFLOP/s fp32, whichever is larger (H100 SXM data sheet). Any failure
+exits non-zero, and so does a host without a CUDA device, before anything
+is printed to stdout. The last lines are the kernel summary JSON, the
+card's ``name, power.limit`` from nvidia-smi, and ``{"ok": true,
+"device": {...}}``.
 """
 
+import concurrent.futures
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,8 +72,24 @@ CAPTIONS = [f"{s} {p}" for p in _SCENES for s in _SUBJECTS]  # 35
 
 K1_SOURCE = "objgan_tpu_torch/csrc/groupnorm.cu"
 K1_REPLACES = "objgan_tpu/ops/groupnorm.py:88"
+ROI_SOURCE = "objgan_tpu_torch/csrc/roi_align.cu"
+K2_REPLACES = "objgan_tpu/ops/roi_align.py:107"
+K3_REPLACES = "objgan_tpu/ops/roi_align.py:132"
 FP32_ATOL = 1e-4
 BF16_ATOL, BF16_RTOL = 3e-2, 2e-2
+# K2/K3 in bf16: fp32 sums in another order, one rounding to bf16 (a step
+# of at most 2^-8 relative) on both sides
+ROI_BF16_ATOL, ROI_BF16_RTOL = 1e-2, 1e-2
+TRAIN_STEPS = 6
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+FP32_FLOPS_PER_S = 67e12    # H100 SXM, fp32 outside the tensor cores
+
+
+def bound_ms(nbytes, flops):
+    """(least ms, "bytes" or "operations") for the work on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def log(phase, msg):
@@ -124,15 +165,23 @@ def phase_device():
 def phase_build():
     from objgan_tpu_torch.ops import _build
 
-    t0 = time.monotonic()
-    path, compiler_log = _build.build("groupnorm", force=True)
-    secs = time.monotonic() - t0
-    log("build", f"K1 {K1_SOURCE} -> {os.path.relpath(path, ROOT)} in "
-        f"{secs:.2f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
-    _build.load("groupnorm")
+    def build(name):
+        t0 = time.monotonic()
+        path, compiler_log = _build.build(name, force=True)
+        return path, compiler_log, time.monotonic() - t0
+
+    names = {"groupnorm": f"K1 {K1_SOURCE}", "roi_align": f"K2/K3 {ROI_SOURCE}"}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        jobs = {name: pool.submit(build, name) for name in names}
+        for name, job in jobs.items():
+            path, compiler_log, secs = job.result()
+            log("build", f"{names[name]} -> {os.path.relpath(path, ROOT)} in "
+                f"{secs:.2f} s")
+            for line in compiler_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log("build", "ptxas: " + line.strip())
+    for name in names:
+        _build.load(name)
 
 
 def phase_serve(cfg, vocab, pipe):
@@ -198,19 +247,25 @@ def phase_serve(cfg, vocab, pipe):
     return launches
 
 
-def phase_kernels(cfg, vocab, pipe):
-    import torch
-
+def _record_gn(module):
+    """(records, hooks): every FusedGroupNorm call under ``module`` appends
+    (the layer, a copy of its input) to records until the hooks go."""
     from objgan_tpu_torch.models.common import FusedGroupNorm
-    from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
-                                                group_norm_reference)
-    from objgan_tpu_torch.pipeline_e2e import draw_noise
 
-    torch.set_grad_enabled(False)
     records = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: records.append((mod, args[0].detach().clone())))
-        for m in pipe.modules() if isinstance(m, FusedGroupNorm)]
+        for m in module.modules() if isinstance(m, FusedGroupNorm)]
+    return records, hooks
+
+
+def phase_kernels(cfg, vocab, pipe):
+    """Every K1 call of one served batch against the twin, timed."""
+    import torch
+
+    from objgan_tpu_torch.pipeline_e2e import draw_noise
+
+    records, hooks = _record_gn(pipe)
     ids, lens = vocab.encode_batch(CAPTIONS[:16], cfg.TEXT.WORDS_NUM)
     noise = draw_noise(cfg, 16, torch.Generator("cuda").manual_seed(1),
                        "cuda")
@@ -221,9 +276,21 @@ def phase_kernels(cfg, vocab, pipe):
         for h in hooks:
             h.remove()
     torch.cuda.synchronize()
-    log("kernels", f"recorded {len(records)} K1 calls of one batch; "
-        f"tolerance fp32 atol {FP32_ATOL}, bf16 atol {BF16_ATOL} rtol "
-        f"{BF16_RTOL}")
+    return _check_k1("kernels", records, "batch")
+
+
+def _check_k1(phase, records, per):
+    """Replays each recorded K1 call through the kernel and its twin and
+    fails on any output beyond tolerance; then times each distinct call
+    shape (kernel, twin, ``F.group_norm``) against its bound. Returns (max
+    error, totals over the calls: the work of one ``per``)."""
+    import torch
+
+    from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
+                                                group_norm_reference)
+
+    log(phase, f"recorded {len(records)} K1 calls of one {per}; tolerance "
+        f"fp32 atol {FP32_ATOL}, bf16 atol {BF16_ATOL} rtol {BF16_RTOL}")
     max_err = 0.0
     shapes = {}
     for mod, x in records:
@@ -250,29 +317,51 @@ def phase_kernels(cfg, vocab, pipe):
         entry["count"] += 1
         entry["err"] = max(entry["err"], e)
         entry["ulps"] = max(entry["ulps"], ulps)
-    ms = plain_ms = eager_ms = plain_eager_ms = 0.0
+    import torch.nn.functional as F
+
+    def library(x3, scale, bias, groups, eps, glu):
+        # F.group_norm takes (B, C, N): the channels-last tensor's permuted
+        # view; with GLU a second call, F.glu over the channel halves
+        y = F.group_norm(x3.permute(0, 2, 1), groups, scale.to(x3.dtype),
+                         bias.to(x3.dtype), eps)
+        return F.glu(y, dim=1) if glu else y
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "eager_ms": 0.0,
+           "plain_eager_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for key, s in shapes.items():
         x3, args = s["x"], s["args"]
         k_ms, k_eager = time_ms(lambda: group_norm_cuda(x3, *args))
         p_ms, p_eager = time_ms(lambda: group_norm_reference(x3, *args))
-        ms += s["count"] * k_ms
-        plain_ms += s["count"] * p_ms
-        eager_ms += s["count"] * k_eager
-        plain_eager_ms += s["count"] * p_eager
+        l_ms, _ = time_ms(lambda: library(x3, *args))
+        lib_err = float((library(x3, *args).permute(0, 2, 1).float()
+                         - group_norm_reference(x3, *args).float()
+                         ).abs().max())
         (b, nn_, c), dt, g, glu = key
+        nbytes = (x3.numel() * x3.element_size() * (3 if glu else 4) // 2
+                  + 2 * 4 * c)  # x read once, y written once, scale, bias
+        b_ms, _ = bound_ms(nbytes, 8 * x3.numel())
+        n = s["count"]
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("eager_ms", k_eager),
+                     ("plain_eager_ms", p_eager), ("library_ms", l_ms),
+                     ("bound_ms", b_ms)):
+            tot[k] += n * v
         gbps = (2 * x3.numel() * x3.element_size()
                 + x3.numel() * x3.element_size() // (2 if glu else 1)
                 ) / (k_ms * 1e6)
-        log("kernels", f"(B={b}, N={nn_}, C={c}) {dt} groups {g} "
-            f"{'GN+GLU' if glu else 'GN'} x{s['count']}: max err "
+        log(phase, f"(B={b}, N={nn_}, C={c}) {dt} groups {g} "
+            f"{'GN+GLU' if glu else 'GN'} x{n}: max err "
             f"{s['err']:.3g} ({s['ulps']:.2f} bf16 ulp) | device K1 "
-            f"{1000 * k_ms:.1f} us ({gbps:.0f} GB/s), twin "
-            f"{1000 * p_ms:.1f} us | eager K1 {1000 * k_eager:.1f} us, "
-            f"twin {1000 * p_eager:.1f} us")
-    log("kernels", f"all {len(records)} calls agree; per batch, device: K1 "
-        f"{ms:.3f} ms vs twin {plain_ms:.3f} ms; eager: K1 {eager_ms:.3f} "
-        f"ms vs twin {plain_eager_ms:.3f} ms")
-    return max_err, ms, plain_ms
+            f"{1000 * k_ms:.1f} us ({gbps:.0f} GB/s), bound "
+            f"{1000 * b_ms:.1f} us, twin {1000 * p_ms:.1f} us, "
+            f"{'F.group_norm+F.glu' if glu else 'F.group_norm'} "
+            f"{1000 * l_ms:.1f} us (max err {lib_err:.3g}) | eager K1 "
+            f"{1000 * k_eager:.1f} us, twin {1000 * p_eager:.1f} us")
+    log(phase, f"all {len(records)} calls agree; per {per}, device: K1 "
+        f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, twin "
+        f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms "
+        f"(two calls for each GN+GLU); eager: K1 {tot['eager_ms']:.3f} ms "
+        f"vs twin {tot['plain_eager_ms']:.3f} ms")
+    return max_err, tot
 
 
 def phase_stages(cfg, vocab, pipe):
@@ -322,7 +411,7 @@ def phase_small():
     import numpy as np
     import torch
 
-    from objgan_tpu.core.config import tiny_test_config
+    from objgan_tpu_torch.core.config import tiny_test_config
     from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.pipeline_e2e import ObjGanPipeline, draw_noise
 
@@ -355,6 +444,439 @@ def phase_small():
         f"(atol 1e-3)")
 
 
+def _counts():
+    from objgan_tpu_torch.ops import groupnorm, roi_align
+
+    return (groupnorm.launches, roi_align.launches["fwd"],
+            roi_align.launches["bwd"])
+
+
+def _reset_counts():
+    from objgan_tpu_torch.ops import groupnorm, roi_align
+
+    groupnorm.launches = 0
+    roi_align.launches.update(fwd=0, bwd=0)
+
+
+def _nets(trainer):
+    return {"G": trainer.g_net, "objD": trainer.obj_d,
+            **{f"D{i}": d for i, d in enumerate(trainer.d_nets)}}
+
+
+def phase_train(cfg):
+    """The Stage-C train step at full width through ``cli.train_gan``, what
+    ``python -m objgan_tpu_torch.gan_main`` runs, logging every step."""
+    import collections
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.models.discriminator import ObjectDNet
+
+    # the weights train_gan starts from: make_trainer draws them on the CPU
+    # from cfg.RNG_SEED, whatever the device
+    t0 = time.monotonic()
+    nets = _nets(cli.make_trainer(cfg, "cpu"))
+    before = {k: [p.detach().clone() for p in n.parameters()]
+              for k, n in nets.items()}
+    log("train", f"cfg/coco_objgan.yml: batch {cfg.TRAIN.BATCH_SIZE}, DTYPE "
+        f"{cfg.DTYPE}, D_DTYPE {cfg.GAN.D_DTYPE}, pyramid "
+        f"{cfg.branch_sizes}, DF_DIM {cfg.GAN.DF_DIM}, GF_DIM "
+        f"{cfg.GAN.GF_DIM}, MAX_OBJECTS {cfg.OBJ.MAX_OBJECTS}, ROI_SIZE "
+        f"{cfg.OBJ.ROI_SIZE}, REMAT {cfg.GAN.REMAT}, CNN_BACKBONE "
+        f"{cfg.TEXT.CNN_BACKBONE}; M params " + ", ".join(
+            f"{k} {sum(p.numel() for p in n.parameters()) / 1e6:.2f}"
+            for k, n in nets.items()) + f"; initial weights drawn in "
+        f"{time.monotonic() - t0:.1f} s")
+    del nets
+    calls = collections.Counter()
+
+    def count(mod, _):
+        calls[type(mod)] += 1
+
+    out = io.StringIO()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            trainer = cli.train_gan(cfg, max_steps=TRAIN_STEPS,
+                                    device="cuda", log_every=1)
+        torch.cuda.synchronize()
+        k1, k2, k3 = _counts()
+        wall_s = time.monotonic() - t0
+    finally:
+        hook.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    # train_gan's metric lines: "[step N] name=value ... steps_per_sec=v"
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("[step ")]
+    check(len(lines) == TRAIN_STEPS, f"{len(lines)} metric lines for "
+          f"{TRAIN_STEPS} steps")
+    seen = [{k: float(v) for k, v in (kv.split("=") for kv in
+                                      ln.split("] ", 1)[1].split())}
+            for ln in lines]
+    times = [1000.0 / m.pop("steps_per_sec") for m in seen]
+    gn_calls, objd_calls = calls[FusedGroupNorm], calls[ObjectDNet]
+    check(k1 > 0 and k1 == gn_calls and k1 % TRAIN_STEPS == 0,
+          f"K1 launched {k1} times for {gn_calls} GroupNorm calls in "
+          f"{TRAIN_STEPS} steps")
+    check(objd_calls == 3 * TRAIN_STEPS,
+          f"{objd_calls} ObjectDNet calls in {TRAIN_STEPS} steps")
+    # each ObjectDNet call launches K2 once (twice under REMAT stages, which
+    # recomputes it in the backward); its backward launches K3 once
+    roi_per_call = 2 if cfg.GAN.REMAT == "stages" else 1
+    check(k2 == 3 * roi_per_call * TRAIN_STEPS and k3 == 3 * TRAIN_STEPS,
+          f"K2 launched {k2}, K3 {k3} times in {TRAIN_STEPS} steps (expected "
+          f"{3 * roi_per_call} and 3 per step)")
+    bad = [k for m in seen for k, v in m.items() if not math.isfinite(v)]
+    check(not bad, f"non-finite metrics: {sorted(set(bad))}")
+    moved = {}
+    for k, n in _nets(trainer).items():
+        same = sum(bool(torch.equal(a, p.detach().cpu()))
+                   for a, p in zip(before[k], n.parameters()))
+        check(same == 0, f"{k}: {same} parameter tensors did not change")
+        moved[k] = len(before[k])
+    median = statistics.median(times[1:])
+    log("train", f"cli.train_gan took {TRAIN_STEPS} steps on synthetic "
+        f"batches in {wall_s:.1f} s (trainer set-up included); every metric "
+        f"finite; every parameter tensor moved from its initial weights ("
+        + ", ".join(f"{k} {v}" for k, v in moved.items()) + ")")
+    log("train", f"launches in {TRAIN_STEPS} steps: K1 {k1} (= {gn_calls} "
+        f"GroupNorm calls, {k1 // TRAIN_STEPS} per step), K2 {k2}, K3 {k3} "
+        f"({objd_calls} ObjectDNet calls)")
+    log("train", "synchronised ms per step (train_gan's steps_per_sec): "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; median after the first "
+        f"{median:.1f} ms ({cfg.TRAIN.BATCH_SIZE * 1000.0 / median:.1f} "
+        f"img/s); peak memory allocated {peak_gb:.2f} GiB")
+    log("train", "last step: " + ", ".join(
+        f"{k} {seen[-1][k]:.4g}" for k in ("d_loss", "g_loss", "objd_real",
+                                           "objd_fake", "objd_cls", "g_obj",
+                                           "damsm", "kl")))
+    return trainer, {"k1": k1, "k2": k2, "k3": k3, "ms": median,
+                     "k1_per_step": k1 // TRAIN_STEPS}
+
+
+def _device_profile(fn):
+    """(wall ms, device-busy ms, [(start us, end us, kernel name)]) of one
+    call of ``fn`` under torch.profiler; busy is the union of the device
+    intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and "#" not in e.name)
+    check(bool(spans), "the profiler saw no device activity")
+    busy_us, end = 0.0, float("-inf")
+    for a, b, _ in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return wall_ms, busy_us / 1000.0, spans
+
+
+def phase_train_profile(cfg, trainer):
+    """One steady train step under torch.profiler: how busy the device is
+    and which kernels take its time (the profiler's own overhead is in the
+    wall time, so the busy share is a lower bound). Then every GroupNorm
+    backward of one step (the twin's VJP, which has no kernel yet) is
+    replayed alone under the profiler."""
+    import collections
+    import re
+
+    import torch
+
+    from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.ops import groupnorm
+    from objgan_tpu_torch.train.gan import train_noise
+
+    gen = torch.Generator("cuda").manual_seed(9)
+    batch = synthetic_batch(cfg, gen)
+    noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE, gen, "cuda")
+
+    def step():
+        trainer.train_step(batch, noise["z"], noise["ca_eps"])
+
+    wall_ms, busy_ms, spans = _device_profile(step)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    groups = collections.defaultdict(float)
+    for a, b, name in spans:
+        ms = (b - a) / 1000.0
+        by_name[name][0] += ms
+        by_name[name][1] += 1
+        group = ("K1 GroupNorm" if re.search(
+                     "gn_(stats|finalize|apply)_kernel", name) else
+                 "K2/K3 ROI-align" if re.search("roi_(fwd|bwd)_kernel",
+                                                name) else
+                 "conv / matmul" if re.search(
+                     "conv|gemm|xmma|cudnn|cutlass|wgrad|dgrad|fprop|sm90",
+                     name, re.I) else
+                 "other (elementwise, reductions, copies)")
+        groups[group] += ms
+    log("profile", f"one train step under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (share "
+        f"{busy_ms / wall_ms:.3f}), {len(spans)} device activities")
+    log("profile", "device ms by kernel group: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                          key=lambda kv: -kv[1])))
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+        log("profile", f"  {ms:8.3f} ms x{count:4d}  {name[:90]}")
+
+    gn_bwd = groupnorm.group_norm_backward_reference
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return gn_bwd(*args, **kwargs)
+
+    groupnorm.group_norm_backward_reference = recording
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        groupnorm.group_norm_backward_reference = gn_bwd
+
+    def replay():
+        for args, kwargs in calls:
+            gn_bwd(*args, **kwargs)
+
+    replay()  # warm-up
+    r_wall, r_busy, r_spans = _device_profile(replay)
+    log("profile", f"GroupNorm backward (the twin's VJP, statistics "
+        f"recomputed) of one step replayed alone: {len(calls)} calls, "
+        f"{len(r_spans)} device activities, device busy {r_busy:.1f} ms "
+        f"({r_busy / busy_ms:.2f} of the step's), wall {r_wall:.1f} ms "
+        f"under the profiler")
+
+
+def _roi_work(boxes, f_shape, out_size, q):
+    """(touched feature pixels, multiply-add terms) of one ROI-align call:
+    the pixels some sample weighs, and sum over (b, o) of
+    nnz(A_y) * nnz(A_x), each term one multiply-add per channel."""
+    from objgan_tpu_torch.ops.roi_align import _pool_matrices
+
+    _, h, w, _ = f_shape
+    a_y, a_x = _pool_matrices(boxes, h, w, out_size, q)
+    rows, cols = (a_y != 0).any(-2), (a_x != 0).any(-2)  # (B, O, H|W)
+    touched = (rows[..., :, None] & cols[..., None, :]).any(1).sum()
+    terms = ((a_y != 0).sum((-1, -2)) * (a_x != 0).sum((-1, -2))).sum()
+    return int(touched), int(terms)
+
+
+def _record_train_step(cfg, trainer):
+    """One full-width train step with every kernel call's input copied:
+    (K1 records as ``_record_gn`` makes them, K2 calls, K3 calls, the
+    batch's padded-object mask)."""
+    import torch
+
+    from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.ops import roi_align as ra
+    from objgan_tpu_torch.train.gan import train_noise
+
+    fwd, bwd = [], []
+    orig = ra.roi_align_cuda, ra.roi_align_backward_cuda
+
+    def rec_fwd(features, boxes, out_size, q):
+        fwd.append((features.detach().clone(), boxes.clone(), out_size, q))
+        return orig[0](features, boxes, out_size, q)
+
+    def rec_bwd(boxes, g, f_shape, out_size, q):
+        bwd.append((boxes.clone(), g.detach().clone(), f_shape, out_size, q))
+        return orig[1](boxes, g, f_shape, out_size, q)
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    batch = synthetic_batch(cfg, gen)
+    noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE, gen, "cuda")
+    gn, hooks = _record_gn(trainer)
+    ra.roi_align_cuda, ra.roi_align_backward_cuda = rec_fwd, rec_bwd
+    try:
+        trainer.train_step(batch, noise["z"], noise["ca_eps"])
+        torch.cuda.synchronize()
+    finally:
+        ra.roi_align_cuda, ra.roi_align_backward_cuda = orig
+        for h in hooks:
+            h.remove()
+    return gn, fwd, bwd, batch["obj_valid"] == 0
+
+
+def phase_roi(fwd, bwd, pad):
+    """Every K2/K3 call of one train step against the twins, timed."""
+    import torch
+
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    check(len(fwd) == 3 and len(bwd) == 3,
+          f"one step made {len(fwd)} K2 and {len(bwd)} K3 calls")
+    # the serve path and JAX's padding give padded objects all-zero boxes;
+    # replay every call with those too
+    check(bool(pad.any()), "the replayed batch has no padded objects")
+
+    def zeroed(boxes):
+        return boxes.masked_fill(pad[..., None], 0.0)
+
+    try:
+        import torchvision.ops as tv_ops
+    except ImportError:
+        tv_ops = None
+    res = {}
+    for name, calls in (("K2", fwd), ("K3", bwd)):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": None if (tv_ops is None or name == "K3") else
+               0.0}
+        max_err, bound_by = 0.0, "bytes"
+        for call in calls:
+            if name == "K2":
+                f, boxes, r, q = call
+                f_shape, dt = tuple(f.shape), f.dtype
+
+                def kernel(bx, f=f, r=r, q=q):
+                    return ra.roi_align_cuda(f, bx, r, q)
+
+                def twin(bx, f=f, r=r, q=q):
+                    return ra.roi_align_reference(f, bx, r, q)
+            else:
+                boxes, g, f_shape, r, q = call
+                dt = g.dtype
+
+                def kernel(bx, g=g, f_shape=f_shape, r=r, q=q):
+                    return ra.roi_align_backward_cuda(bx, g, f_shape, r, q)
+
+                def twin(bx, g=g, f_shape=f_shape, r=r, q=q):
+                    return ra.roi_align_backward_reference(bx, g, f_shape,
+                                                           g.dtype, r, q)
+            for bx in (boxes, zeroed(boxes)):
+                got, want = kernel(bx).float(), twin(bx).float()
+                err = (got - want).abs()
+                max_err = max(max_err, float(err.max()))
+                if dt == torch.float32:
+                    check(float(err.max()) <= FP32_ATOL,
+                          f"{name} vs twin: max err {float(err.max()):.3g}")
+                else:
+                    over = err > ROI_BF16_ATOL + ROI_BF16_RTOL * want.abs()
+                    check(not bool(over.any()), f"{name} vs twin: "
+                          f"{int(over.sum())} elements beyond tolerance")
+            if name == "K2":
+                # a padded (all-zero) box samples the top-left pixel only
+                top_left = f[:, 0, 0, :][:, None, None, None, :]
+                out = kernel(zeroed(boxes))
+                check(bool(torch.equal(
+                    out.masked_select(pad[..., None, None, None]),
+                    top_left.expand_as(out).masked_select(
+                        pad[..., None, None, None]))),
+                    "K2: a zero box does not return the top-left pixel")
+            k_ms, _ = time_ms(lambda: kernel(boxes))
+            p_ms, _ = time_ms(lambda: twin(boxes))
+            itemsize = torch.tensor([], dtype=dt).element_size()
+            touched, terms = _roi_work(boxes, f_shape, r, q)
+            c = f_shape[-1]
+            b, o = boxes.shape[:2]
+            out_bytes = b * o * r * r * c * itemsize
+            full_bytes = b * f_shape[1] * f_shape[2] * c * itemsize
+            nbytes = (touched * c * itemsize + out_bytes if name == "K2"
+                      else out_bytes + full_bytes) + boxes.numel() * 4
+            b_ms, bound_by = bound_ms(nbytes, 2 * terms * c)
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += b_ms
+            lib = ""
+            if tot["library_ms"] is not None:
+                _, h, w, _ = f_shape
+                x0, y0, bw, bh = boxes.unbind(-1)
+                idx = torch.arange(b, device=boxes.device, dtype=torch.float32
+                                   )[:, None].expand(b, o)
+                rois = torch.stack([idx, x0 * w, y0 * h, (x0 + bw) * w,
+                                    (y0 + bh) * h], -1).reshape(-1, 5)
+                nchw = f.float().permute(0, 3, 1, 2).contiguous()
+
+                def library():
+                    return tv_ops.roi_align(nchw, rois, r, 1.0, q, True)
+
+                l_ms, _ = time_ms(library)
+                l_err = float((library().reshape(b, o, c, r, r).permute(
+                    0, 1, 3, 4, 2) - ra.roi_align_reference(
+                        f.float(), boxes, r, q)).abs().max())
+                tot["library_ms"] += l_ms
+                lib = (f", torchvision.ops.roi_align (fp32 NCHW input) "
+                       f"{1000 * l_ms:.1f} us (max err vs twin {l_err:.3g})")
+            shape = tuple(f_shape) if name == "K2" else tuple(g.shape)
+            log("roi", f"{name} {shape} {str(dt).replace('torch.', '')}: "
+                f"device {1000 * k_ms:.1f} us, bound {1000 * b_ms:.2f} us "
+                f"({bound_by}; {nbytes / 1e6:.2f} MB, {touched} of "
+                f"{b * f_shape[1] * f_shape[2]} pixels touched), twin "
+                f"{1000 * p_ms:.1f} us" + lib)
+        if name == "K2" and tv_ops is None:
+            log("roi", "no library call: torchvision is not installed")
+        if name == "K3":
+            log("roi", "no library call computes K3 alone (torchvision's "
+                "backward runs only through autograd)")
+        tol = (f"bf16 atol {ROI_BF16_ATOL} rtol {ROI_BF16_RTOL}"
+               if dt == torch.bfloat16 else f"fp32 atol {FP32_ATOL}")
+        log("roi", f"{name}: {len(calls)} calls per step agree with the twin "
+            f"(recorded boxes and padded boxes zeroed), max err "
+            f"{max_err:.3g} ({tol}); per step: device {tot['ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms, twin {tot['plain_ms']:.4f} ms"
+            + ("" if tot["library_ms"] is None
+               else f", library {tot['library_ms']:.4f} ms"))
+        res[name] = dict(tot, max_abs_err=max_err, bound_by=bound_by)
+    check(bool(torch.equal(ra.roi_align_backward_cuda(*bwd[0]),
+                           ra.roi_align_backward_cuda(*bwd[0]))),
+          "K3 is not bit-reproducible")
+    return res
+
+
+def phase_small_train():
+    """A tiny fp32 train step, GPU (kernels) against CPU (twins)."""
+    import torch
+
+    from objgan_tpu_torch.core.config import tiny_test_config
+    from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.train.gan import GanTrainer, train_noise
+
+    cfg = tiny_test_config().merged({"DTYPE": "float32"})
+    cpu = GanTrainer(cfg).init_state(torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
+    noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE,
+                        torch.Generator().manual_seed(2), "cpu")
+    want_g, want_m = cpu.grads(batch, noise["z"], noise["ca_eps"])
+    before = _counts()
+    cuda = {k: ([x.cuda() for x in v] if isinstance(v, list) else v.cuda())
+            for k, v in batch.items()}
+    got_g, got_m = gpu.grads(cuda, noise["z"].cuda(), noise["ca_eps"].cuda())
+    torch.cuda.synchronize()
+    rose = [a - b for a, b in zip(_counts(), before)]
+    check(all(n > 0 for n in rose), f"K1/K2/K3 launches on the GPU: {rose}")
+    m_err = max(abs(float(got_m[k]) - float(v)) / max(abs(float(v)), 1e-6)
+                for k, v in want_m.items())
+    check(m_err <= 1e-4, f"metrics differ by {m_err:.3g} relative")
+    g_err, worst = 0.0, ""
+    for k, w in want_g.items():
+        e = float((got_g[k].cpu() - w).norm() / w.norm().clamp(min=1e-12))
+        if e > g_err:
+            g_err, worst = e, k
+    check(g_err <= 1e-3, f"gradient of {worst} differs by {g_err:.3g}")
+    log("small_train", f"tiny fp32 train step, GPU (K1 {rose[0]}, K2 "
+        f"{rose[1]}, K3 {rose[2]} launches) vs CPU (twins), same weights, "
+        f"batch and noise: {len(want_m)} metrics within {m_err:.3g} "
+        f"relative (rtol 1e-4); {len(want_g)} parameter gradients within "
+        f"{g_err:.3g} relative norm (worst {worst}; limit 1e-3)")
+
+
 def main():
     import torch
 
@@ -362,13 +884,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from objgan_tpu.core.config import cfg_from_file
+    from objgan_tpu_torch.core.config import cfg_from_file
     from objgan_tpu_torch.core.precision import true_fp32
     from objgan_tpu_torch.data.tokenizer import Vocab
     from objgan_tpu_torch.pipeline_e2e import ObjGanPipeline
 
     true_fp32()
-    card, name = phase_device()
+    card, kind = phase_device()
     phase_build()
     cfg = cfg_from_file(os.path.join(ROOT, "cfg", "eval_coco.yml"))
     t0 = time.monotonic()
@@ -380,22 +902,56 @@ def main():
         f"initialised in {time.monotonic() - t0:.1f} s")
     vocab = Vocab.build(CAPTIONS)
     launches = phase_serve(cfg, vocab, pipe)
-    max_err, ms, plain_ms = phase_kernels(cfg, vocab, pipe)
+    with torch.no_grad():
+        k1_err, k1 = phase_kernels(cfg, vocab, pipe)
     phase_stages(cfg, vocab, pipe)
     phase_small()
-    print(json.dumps({"kernels": [{
-        "name": "groupnorm_glu",
-        "route": "cuda",
-        "source": K1_SOURCE,
-        "replaces": K1_REPLACES,
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    del pipe
+    torch.cuda.empty_cache()
+    train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
+    trainer, train = phase_train(train_cfg)
+    phase_train_profile(train_cfg, trainer)
+    gn_calls, fwd, bwd, pad = _record_train_step(train_cfg, trainer)
+    del trainer
+    check(len(gn_calls) == train["k1_per_step"],
+          f"one step made {len(gn_calls)} K1 calls, train_gan "
+          f"{train['k1_per_step']} per step")
+    with torch.no_grad():
+        k1_train_err, k1_train = _check_k1("train_k1", gn_calls, "train step")
+    del gn_calls
+    roi = phase_roi(fwd, bwd, pad)
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    phase_small_train()
+    kernels = [{
+        "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": launches,
+        "max_abs_err": max(k1_err, k1_train_err), "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": "bytes", "library_ms": k1["library_ms"],
+        # K1 runs on both paths: the keys above are per served batch (the
+        # error the larger of both paths'), "train" per train step; the
+        # library time takes two calls (F.group_norm, F.glu) for a GN+GLU
+        "train": {"launches": train["k1"], "max_abs_err": k1_train_err,
+                  "ms": k1_train["ms"], "plain_ms": k1_train["plain_ms"],
+                  "bound_ms": k1_train["bound_ms"],
+                  "library_ms": k1_train["library_ms"]},
+    }]
+    for name, replaces, key in (("roi_align_fwd", K2_REPLACES, "K2"),
+                                ("roi_align_bwd", K3_REPLACES, "K3")):
+        r = roi[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ROI_SOURCE,
+            "replaces": replaces,
+            "launches": train["k2" if key == "K2" else "k3"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,12 +1,15 @@
 """objgan_tpu_torch — the PyTorch/CUDA port of objgan_tpu for NVIDIA Hopper.
 
 It mirrors the JAX package's layout (``core/``, ``ops/``, ``models/``,
-``train/``, ``data/``, ``pipeline_e2e.py``, ``serving.py``) and is held to
-it by the ``tests/test_torch_*.py`` parity tests. It imports ``torch`` and
-never JAX; of the JAX package it imports only the JAX-free host modules
-``objgan_tpu.core.config`` and ``objgan_tpu.utils.visualize``.
+``losses/``, ``train/``, ``data/``, ``utils/``, ``pipeline_e2e.py``,
+``serving.py``, ``cli.py``) and is held to it by the
+``tests/test_torch_*.py`` parity tests. It imports ``torch`` and nothing of
+the JAX package: the JAX-free host modules it needs (the config tree, the
+tokenizer, the label tables, the PNG writer) are copies of their own,
+held equal to the originals by tests.
 
-The GroupNorm(+GLU) layers run the hand-written CUDA kernel
-``csrc/groupnorm.cu`` on the card (built by nvcc at first use into
-``_build/``) and its plain PyTorch twin on the CPU.
+Three hand-written CUDA kernels run on the card, built by nvcc at first use
+into ``_build/``: GroupNorm(+GLU) (``csrc/groupnorm.cu``) and ROI-align
+forward and backward (``csrc/roi_align.cu``). On the CPU their plain
+PyTorch twins run instead.
 """

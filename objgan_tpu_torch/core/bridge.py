@@ -12,6 +12,9 @@ imports JAX, so the rules are restated here):
 * Embed ``embedding`` (num, features) -> ``weight``, unchanged
 * LSTM ``w_ih``, ``w_hh``, ``b`` (and ``fwd_*`` / ``bwd_*``) keep their
   names and the JAX layout, single bias included.
+
+``load_gan_state`` loads a whole Stage-C train state into the port's
+trainer.
 """
 
 from __future__ import annotations
@@ -76,3 +79,24 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
                 raise ValueError(f"shape mismatch at {name}: JAX "
                                  f"{arr.shape} vs torch {tuple(p.shape)}")
             p.copy_(torch.tensor(arr))
+
+
+def load_gan_state(trainer: nn.Module, state) -> None:
+    """Load a JAX ``GanTrainState`` (its ``g_params``, ``ema_g_params``,
+    ``d_params``, ``objd_params``, ``text_params``, ``img_params`` and
+    ``label_table``, as numpy or JAX arrays) into a
+    ``train.gan.GanTrainer``. The optimiser state starts fresh, as in JAX's
+    ``init_state``."""
+    if len(state.d_params) != len(trainer.d_nets):
+        raise ValueError(f"{len(state.d_params)} D param trees for "
+                         f"{len(trainer.d_nets)} DNets")
+    load_jax_params(trainer.g_net, state.g_params)
+    load_jax_params(trainer.ema_g, state.ema_g_params)
+    for dnet, tree in zip(trainer.d_nets, state.d_params):
+        load_jax_params(dnet, tree)
+    load_jax_params(trainer.obj_d, state.objd_params)
+    load_jax_params(trainer.text_enc, state.text_params)
+    load_jax_params(trainer.img_enc, state.img_params)
+    with torch.no_grad():
+        trainer.label_table.copy_(torch.tensor(np.asarray(state.label_table)))
+    trainer.reset_optimizers()

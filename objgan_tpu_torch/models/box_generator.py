@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from objgan_tpu.core.config import Config
+from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import Dense, Embed
 from objgan_tpu_torch.ops import gmm
 from objgan_tpu_torch.ops.lstm import BiLSTM, Carry, LSTMCell

@@ -1,16 +1,23 @@
-"""DAMSM text encoder, eval only. Port of ``RNNEncoder`` and
-``build_text_encoder`` from ``objgan_tpu/models/damsm.py``: embedding +
-bi-LSTM; returns per-word features (B, T, 2H) and the sentence embedding
-(B, 2H), the final hiddens of both directions. fp32; no dropout (the
-sampling path runs it deterministic)."""
+"""DAMSM text and image encoders, frozen (no dropout, eval only). Port of
+``objgan_tpu/models/damsm.py``:
+
+* ``RNNEncoder``: embedding + bi-LSTM; per-word features (B, T, 2H) and the
+  sentence embedding (B, 2H), the final hiddens of both directions.
+* ``CNNEncoder`` (InceptionLite): an all-conv backbone with a 16x16 region
+  grid at 256 px; region features (B, R*R, D) and a global feature (B, D),
+  both projected to ``TEXT.EMBEDDING_DIM``, fp32.
+
+Both run fp32. The ``inception`` backbone is not ported yet.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from objgan_tpu.core.config import Config
-from objgan_tpu_torch.core.layers import Embed
+from objgan_tpu_torch.core.config import Config
+from objgan_tpu_torch.core.layers import Conv, Dense, Embed
+from objgan_tpu_torch.models.common import gn
 from objgan_tpu_torch.ops.lstm import BiLSTM
 
 
@@ -34,3 +41,58 @@ def build_text_encoder(cfg: Config) -> RNNEncoder:
             f"(got 2*{cfg.TEXT.HIDDEN_DIM} != {cfg.TEXT.EMBEDDING_DIM})")
     return RNNEncoder(cfg.TEXT.VOCAB_SIZE, cfg.TEXT.GLOVE_DIM,
                       cfg.TEXT.HIDDEN_DIM)
+
+
+class _ConvBlock(nn.Module):
+    """3x3 conv (no bias) -> GroupNorm -> ReLU."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, (3, 3), stride=stride,
+                           dtype=dtype)
+        self.FusedGroupNorm_0 = gn(features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.FusedGroupNorm_0(self.Conv_0(x)))
+
+
+class CNNEncoder(nn.Module):
+    """InceptionLite: images (B, S, S, 3) in [-1, 1], S >= 64 -> (region
+    features (B, (S/16)^2, D) fp32, global feature (B, D) fp32)."""
+
+    # (output width in multiples of base_width, stride) of _ConvBlock_0..5
+    _TRUNK = ((1, 2), (2, 2), (4, 2), (4, 1), (8, 2), (8, 1))
+
+    def __init__(self, embed_dim: int, base_width: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        w, prev = base_width, 3
+        for i, (mult, stride) in enumerate(self._TRUNK):
+            self.add_module(f"_ConvBlock_{i}",
+                            _ConvBlock(prev, w * mult, stride, dtype))
+            prev = w * mult
+        self.emb_features = Conv(prev, embed_dim, (1, 1), dtype=dtype)
+        self._ConvBlock_6 = _ConvBlock(prev, w * 16, 2, dtype)
+        self._ConvBlock_7 = _ConvBlock(w * 16, w * 16, 2, dtype)
+        self.emb_cnn_code = Dense(w * 16, embed_dim, bias=False, dtype=dtype)
+
+    def forward(self, images: torch.Tensor):
+        x = images.to(self.dtype)
+        for i in range(len(self._TRUNK)):
+            x = getattr(self, f"_ConvBlock_{i}")(x)
+        reg = self.emb_features(x)  # (B, R, R, D)
+        b, r1, r2, d = reg.shape
+        g = self._ConvBlock_7(self._ConvBlock_6(x)).mean(dim=(1, 2))
+        g = self.emb_cnn_code(g)
+        return reg.reshape(b, r1 * r2, d).float(), g.float()
+
+
+def build_image_encoder(cfg: Config, base_width: int = 32) -> CNNEncoder:
+    if cfg.TEXT.CNN_BACKBONE == "inception":
+        raise NotImplementedError(
+            "TEXT.CNN_BACKBONE 'inception' (models/inception_v3.py) is not "
+            "ported to objgan_tpu_torch yet; it is queued in ROADMAP.md "
+            "(queue 1). Use 'lite'.")
+    return CNNEncoder(cfg.TEXT.EMBEDDING_DIM, base_width=base_width)

@@ -1,9 +1,12 @@
-"""Stage-C cascaded attentive image generator (G_NET), sampling path.
+"""Stage-C cascaded attentive image generator (G_NET) and the CA-net KL loss.
 
 Port of ``objgan_tpu/models/generator.py``. Submodule names mirror the JAX
 param tree (``init_stage.up0.conv``, ``layout_enc.FusedGroupNorm_1``, ...) so
 the param bridge maps paths one to one. Activations are NHWC. Only ``GNet``
-runs in ``cfg.DTYPE``; attention maps stay fp32.
+runs in ``cfg.DTYPE``; attention maps stay fp32. With ``GAN.REMAT:
+stages`` the attention stages run under ``torch.utils.checkpoint`` when a
+gradient is being recorded: their activations are recomputed in the
+backward pass instead of stored.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from objgan_tpu.core.config import Config
+from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import Conv, Dense
 from objgan_tpu_torch.models.common import glu, gn, gn_glu, lrelu
 from objgan_tpu_torch.ops import attention as att_ops
@@ -239,6 +243,7 @@ class GNet(nn.Module):
         gf = cfg.GAN.GF_DIM
         base = cfg.TREE.BASE_SIZE
         self.ctx_dtype = dt if cfg.GAN.OBJ_PASTE_DTYPE == "compute" else None
+        self.remat = cfg.GAN.REMAT == "stages"
         self.ca_net = CANet(cfg.TEXT.EMBEDDING_DIM, cfg.GAN.CONDITION_DIM, dt)
         self.layout_enc = LayoutEncoder(cfg.OBJ.LABEL_DIM, gf * 8, base, 4, dt)
         self.init_stage = InitStageG(cfg.GAN.Z_DIM + cfg.GAN.CONDITION_DIM,
@@ -286,8 +291,13 @@ class GNet(nn.Module):
                     shape_maps.reshape(b * o, 1, base, base), size=(res, res),
                     mode="bilinear", align_corners=False,
                 ).reshape(b, o, res, res)
-            h, g_attn, o_attn = getattr(self, f"attn_stage{i}")(
-                h, word_embs, word_mask, obj_query, maps_i, obj_valid)
+            stage = getattr(self, f"attn_stage{i}")
+            args = (h, word_embs, word_mask, obj_query, maps_i, obj_valid)
+            if self.remat and torch.is_grad_enabled():
+                h, g_attn, o_attn = checkpoint(stage, *args,
+                                               use_reentrant=False)
+            else:
+                h, g_attn, o_attn = stage(*args)
             res *= 2
             imgs.append(getattr(self, f"img{res}")(h))
             grid_attns.append(g_attn)
@@ -299,3 +309,9 @@ class GNet(nn.Module):
             "mu": mu,
             "logvar": logvar,
         }
+
+
+def kl_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """CA-net KL(N(mu, sigma) || N(0, I)), averaged over all elements (the
+    lineage's ``torch.mean(KLD_element)``)."""
+    return -0.5 * torch.mean(1 + logvar - mu ** 2 - torch.exp(logvar))

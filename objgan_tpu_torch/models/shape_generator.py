@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from objgan_tpu.core.config import Config
+from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import Conv, Dense
 from objgan_tpu_torch.models.common import gn, lrelu
 from objgan_tpu_torch.models.generator import upsample_nearest2x

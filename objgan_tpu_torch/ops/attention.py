@@ -1,8 +1,9 @@
-"""Attention primitives of the generator: grid (word -> region) attention,
-object-driven attention and the object-context paste.
+"""Attention primitives: grid (word -> region) attention, object-driven
+attention, the object-context paste, and DAMSM's double-softmax attention.
 
 Port of ``objgan_tpu/ops/attention.py`` with the same layouts, mask polarity
-(``word_mask`` True = padded, excluded) and canonical order: inputs upcast
+(``word_mask`` True = padded, excluded; ``query_valid`` nonzero = valid,
+included) and canonical order: inputs upcast
 to fp32, masked with -1e9 (not -inf), softmaxed; attention maps are returned
 in fp32 from true fp32 matmuls (the entry points turn TF32 off).
 """
@@ -44,6 +45,25 @@ def grid_attention(
     else:
         context = torch.bmm(attn, s)
     return context.to(query.dtype), attn
+
+
+def damsm_attention(
+    query: torch.Tensor,  # (B, T, C) word features
+    context: torch.Tensor,  # (B, L, C) region features
+    gamma1: float,
+    query_valid: Optional[torch.Tensor] = None,  # (B, T) nonzero = real word
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DAMSM ``func_attention``: softmax over words (padded words filled
+    with -1e9), then a gamma1-scaled softmax over regions. Returns (the
+    weighted region context (B, T, C) fp32, attn (B, T, L) fp32)."""
+    q = query.float()
+    c = context.float()
+    scores = torch.bmm(c, q.transpose(1, 2))  # (B, L, T)
+    if query_valid is not None:
+        scores = scores.masked_fill(~(query_valid[:, None, :] > 0), _NEG_INF)
+    attn = torch.softmax(scores, dim=-1)
+    attn = torch.softmax(gamma1 * attn.transpose(1, 2), dim=-1)
+    return torch.bmm(attn, c), attn
 
 
 def object_attention(

@@ -6,6 +6,11 @@ launches the hand-written kernel ``csrc/groupnorm.cu`` (which replaces the
 JAX package's Pallas kernel ``objgan_tpu/ops/groupnorm.py::_kernel``) or
 raises. There is no fallback from the kernel to the twin.
 
+On the card the kernel runs inside ``GroupNormFunction``, a
+``torch.autograd.Function`` whose backward is the VJP of the twin with the
+statistics recomputed from the saved ``x, scale, bias``, as the JAX
+package's ``custom_vjp`` does (``_gn_bwd``). There is no backward kernel.
+
 Semantics are the JAX package's ``group_norm_reference``: Linen GroupNorm
 statistics in fp32 (E[x^2] - E[x]^2 clamped at 0), the per-channel affine,
 a cast back to the input dtype, then optionally GLU over the channel halves.
@@ -125,13 +130,49 @@ def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
+                                  bias: torch.Tensor, num_groups: int,
+                                  eps: float, use_glu: bool,
+                                  grad_y: torch.Tensor,
+                                  needs=(True, True, True)):
+    """Gradients (dx, dscale, dbias) of ``group_norm_reference`` at
+    (x, scale, bias) for the output cotangent ``grad_y``: autograd through
+    the twin, statistics recomputed. Entries whose ``needs`` flag is False
+    are None."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(want)
+                  for t, want in zip((x, scale, bias), needs)]
+        y = group_norm_reference(*leaves, num_groups, eps, use_glu)
+        wanted = [t for t, want in zip(leaves, needs) if want]
+        grads = iter(torch.autograd.grad(y, wanted, grad_y))
+    return tuple(next(grads) if want else None for want in needs)
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """K1 forward on (B, N, C), the twin's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x3, scale, bias, num_groups, eps, use_glu):
+        ctx.save_for_backward(x3, scale, bias)
+        ctx.args = (num_groups, eps, use_glu)
+        return group_norm_cuda(x3, scale, bias, num_groups, eps, use_glu)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        x3, scale, bias = ctx.saved_tensors
+        grads = group_norm_backward_reference(
+            x3, scale, bias, *ctx.args, grad_y,
+            needs=ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float, use_glu: bool) -> torch.Tensor:
     """GroupNorm(+GLU) of a channels-last x (B, ..., C): the twin for a CPU
-    tensor, kernel K1 for a CUDA tensor."""
+    tensor, kernel K1 (differentiable) for a CUDA tensor."""
     if x.device.type == "cpu":
         return group_norm_reference(x, scale, bias, num_groups, eps, use_glu)
     b, c = x.shape[0], x.shape[-1]
-    y = group_norm_cuda(x.reshape(b, -1, c), scale, bias, num_groups, eps,
-                        use_glu)
+    y = GroupNormFunction.apply(x.reshape(b, -1, c), scale, bias, num_groups,
+                                eps, use_glu)
     return y.reshape(*x.shape[:-1], y.shape[-1])

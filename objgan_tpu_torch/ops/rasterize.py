@@ -53,3 +53,10 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, height: int,
     m = masks.float()
     out = r_y @ m @ r_x.transpose(-1, -2)
     return out.to(masks.dtype)
+
+
+def layout_map(obj_maps: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Collapse per-object maps (B, O, H, W) to one occupancy canvas
+    (B, H, W, 1): the max over valid objects."""
+    v = valid.to(obj_maps.dtype)[..., None, None]
+    return (obj_maps * v).amax(dim=1)[..., None]

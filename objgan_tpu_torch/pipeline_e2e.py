@@ -15,7 +15,7 @@ from typing import Dict, Mapping
 import torch
 import torch.nn as nn
 
-from objgan_tpu.core.config import Config
+from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core import bridge
 from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.models.box_generator import BoxGenerator

@@ -39,7 +39,7 @@ def main(argv=None) -> None:
                     help="torch device to serve on")
     args = ap.parse_args(argv)
 
-    from objgan_tpu.core.config import Config, cfg_from_file
+    from objgan_tpu_torch.core.config import Config, cfg_from_file
     from objgan_tpu_torch.data.tokenizer import Vocab
     from objgan_tpu_torch.serving import parse_requests, run_serve
 

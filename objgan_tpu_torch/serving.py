@@ -82,7 +82,7 @@ def run_serve(
     seconds from the start until its results were on the host, and
     ``emit_s`` the seconds the host then spent writing its PNGs and
     responses."""
-    from objgan_tpu.utils.visualize import _to_uint8, save_png
+    from objgan_tpu_torch.utils.visualize import _to_uint8, save_png
     from objgan_tpu_torch.core.precision import true_fp32
     from objgan_tpu_torch.pipeline_e2e import ObjGanPipeline, draw_noise
 

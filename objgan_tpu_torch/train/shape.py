@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from objgan_tpu.core.config import Config
+from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.models.shape_generator import ShapeGenerator
 
 

@@ -1,13 +1,16 @@
-"""Kernel K1 (objgan_tpu_torch/csrc/groupnorm.cu) against its plain PyTorch
-twin on the card, at the shapes the served model gives it. Card-only:
-marked ``cuda`` and skipped without a CUDA device. This file imports
-neither JAX nor the parity helpers, so on a GPU host it runs as
+"""The port's kernels against their plain PyTorch twins on the card: K1
+(objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model gives
+it and under autograd, K2 and K3 (objgan_tpu_torch/csrc/roi_align.cu) at
+the train step's shapes and under autograd. Card-only: marked ``cuda`` and
+skipped without a CUDA device. This file imports neither JAX nor the
+parity helpers, so on a GPU host it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 atol 1e-4 (another summation order); bf16 atol 3e-2,
-rtol 2e-2 (a fp32 difference can round to the neighbouring bf16 value,
-and the GLU rounds three times)."""
+Tolerances: fp32 atol 1e-4 (another summation order); K1 in bf16 atol
+3e-2, rtol 2e-2 (a fp32 difference can round to the neighbouring bf16
+value, and the GLU rounds three times); K2/K3 in bf16 atol 1e-2, rtol
+1e-2 (fp32 sums, one rounding)."""
 
 import pytest
 import torch
@@ -100,3 +103,115 @@ def test_module_on_card_matches_cpu(dev, make):
     want = m(x)
     got = m.to(dev)(x.to(dev))
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+def test_k1_function_gradient_matches_twin(dev):
+    """On the card ``group_norm`` runs K1 inside ``GroupNormFunction``; its
+    gradients (dx, dscale, dbias) are the twin's, fp32 atol 1e-4."""
+    for use_glu in (False, True):
+        x, scale, bias = _inputs(2, 64, 96, torch.float32, dev, seed=4)
+        g = torch.randn(2, 64, 48 if use_glu else 96, device=dev)
+        grads = []
+        for fn in (groupnorm.group_norm, groupnorm.group_norm_reference):
+            leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+            before = groupnorm.launches
+            y = fn(*leaves, 32, 1e-6, use_glu)
+            assert (groupnorm.launches - before
+                    == (fn is groupnorm.group_norm))
+            grads.append(torch.autograd.grad(y, leaves, g))
+        for got, want in zip(*grads):
+            assert float((got - want).abs().max()) <= 1e-4
+
+
+def _roi_inputs(b, h, w, c, o, dtype, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+    xy = torch.rand(b, o, 2, generator=gen, device=dev) * 0.7
+    wh = torch.rand(b, o, 2, generator=gen, device=dev) * 0.2 + 0.1
+    boxes = torch.cat([xy, wh], -1)
+    boxes[:, -1] = 0.0  # a padded (all-zero) box in every image
+    boxes[0, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])  # the full frame
+    return f, boxes
+
+
+def _roi_close(got, want, dtype):
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(err.max()) <= 1e-4
+    return not bool((err > 1e-2 + 1e-2 * want.float().abs()).any())
+
+
+# (B, H, W, C, O, R, dtype): the train step's shape (16 images, 256 px /
+# 8, 10 objects, ROI 7), fp32 at that shape, a tiny one, and odd channel
+# counts that take the scalar (non-vector) path
+ROI_SHAPES = [
+    (16, 32, 32, 256, 10, 7, torch.bfloat16),
+    (16, 32, 32, 256, 10, 7, torch.float32),
+    (2, 8, 8, 32, 3, 4, torch.float32),
+    (3, 9, 7, 5, 4, 3, torch.float32),
+    (2, 8, 8, 12, 3, 4, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,h,w,c,o,r,dtype", ROI_SHAPES)
+def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype):
+    """K2 against ``roi_align_reference`` and K3 against
+    ``roi_align_backward_reference``: fp32 atol 1e-4; bf16 atol 1e-2, rtol
+    1e-2 (fp32 sums in another order, then one rounding to bf16)."""
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(b, h, w, c, o, dtype, dev)
+    before = dict(ra.launches)
+    got = ra.roi_align_cuda(f, boxes, r, 2)
+    want = ra.roi_align_reference(f, boxes, r, 2)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _roi_close(got, want, dtype)
+    # the padded box returns the top-left pixel everywhere
+    assert torch.equal(got[:, -1], f[:, None, None, 0, 0, :].expand_as(
+        got[:, -1]))
+    g = torch.randn(got.shape, device=dev).to(dtype)
+    dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, r, 2)
+    dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, r, 2)
+    assert dfg.dtype == dtype and dfg.shape == f.shape
+    assert _roi_close(dfg, dfw, dtype)
+    assert ra.launches == {"fwd": before["fwd"] + 1,
+                           "bwd": before["bwd"] + 1}
+
+
+def test_k3_is_bit_reproducible(dev):
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(16, 32, 32, 256, 10, torch.bfloat16, dev, seed=5)
+    g = torch.randn(16, 10, 7, 7, 256, device=dev).bfloat16()
+    a = ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
+    assert torch.equal(a, ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2))
+
+
+def test_k3_rejects_shared_memory_overflow(dev):
+    """O·R·W beyond K3's 48 KiB of shared memory: the C entry launches
+    nothing and the wrapper raises, counting no launch."""
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(1, 8, 256, 8, 10, torch.float32, dev, seed=7)
+    g = torch.randn(1, 10, 7, 7, 8, device=dev)
+    before = dict(ra.launches)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
+    assert ra.launches == before
+
+
+def test_roi_align_autograd_on_card_matches_twin(dev):
+    """``roi_align`` on a CUDA tensor: K2 forward, K3 backward, the boxes
+    without a gradient; fp32 atol 1e-4 against autograd through the twin."""
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(2, 16, 16, 64, 5, torch.float32, dev, seed=6)
+    g = torch.randn(2, 5, 7, 7, 64, device=dev)
+    outs = []
+    for fn in (ra.roi_align, ra.roi_align_reference):
+        leaf = f.clone().requires_grad_()
+        y = fn(leaf, boxes, 7, 2)
+        outs.append((y, torch.autograd.grad(y, leaf, g)[0]))
+    (y, df), (y_want, df_want) = outs
+    assert float((y - y_want).abs().max()) <= 1e-4
+    assert float((df - df_want).abs().max()) <= 1e-4

@@ -1,7 +1,8 @@
 """Parity of the port's models with the JAX package on the same params and
-inputs: the DAMSM text encoder, Stage A's sampler, Stage B's generator and
-Stage C's GNet (both UP_MODEs), plus the traps the port has to keep (stage
-dtypes, InitStageG's flat GroupNorm grouping).
+inputs: the DAMSM text and image encoders, Stage A's sampler, Stage B's
+generator, Stage C's GNet (both UP_MODEs) and discriminators (``DNet``'s
+trunk, heads and whole, ``ObjectDNet``), plus the traps the port has to
+keep (stage dtypes, InitStageG's flat GroupNorm grouping).
 
 Tolerances: modules fp32 atol 1e-5 rtol 1e-5; the conv stacks (GNet
 images, Stage B's U-Net logits) fp32 atol 1e-4, since many convs deep the
@@ -17,16 +18,20 @@ import pytest
 import torch
 
 from objgan_tpu.models.box_generator import BoxGenerator as JBoxGenerator
+from objgan_tpu.models import discriminator as jdisc
+from objgan_tpu.models.damsm import build_image_encoder as j_image_encoder
 from objgan_tpu.models.damsm import build_text_encoder as j_text_encoder
 from objgan_tpu.models.generator import GNet as JGNet
 from objgan_tpu.models.shape_generator import ShapeGenerator as JShapeGen
 from objgan_tpu_torch.core import bridge
 from objgan_tpu_torch.models.box_generator import BoxGenerator
-from objgan_tpu_torch.models.damsm import build_text_encoder
+from objgan_tpu_torch.models import discriminator as tdisc
+from objgan_tpu_torch.models.damsm import (build_image_encoder,
+                                           build_text_encoder)
 from objgan_tpu_torch.models.generator import GNet, FlatGroupNorm
 from objgan_tpu_torch.models.shape_generator import ShapeGenerator
 from tests.torch_parity import (assert_bf16_images_close, example_batch, n,
-                                 t, tiny)
+                                 port_cfg, t, tiny)
 
 torch.set_num_threads(2)
 
@@ -57,7 +62,7 @@ def test_text_encoder(cfg):
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(caps),
                      jnp.asarray(lens))
     w_words, w_sent = jm.apply(params, jnp.asarray(caps), jnp.asarray(lens))
-    tm = build_text_encoder(cfg)
+    tm = build_text_encoder(port_cfg(cfg))
     bridge.load_jax_params(tm, jax.device_get(params))
     g_words, g_sent = tm(t(caps), t(lens))
     np.testing.assert_allclose(n(g_words), n(w_words), **TOL)
@@ -74,7 +79,7 @@ def test_shape_generator(cfg):
     params = jm.init(jax.random.PRNGKey(0), *args, rng)
     want = jm.apply(params, *args, rng)
     z = jax.random.normal(rng, (*labels.shape, 1, 1, cfg.SHAPE.GF_DIM))
-    tm = ShapeGenerator(cfg)
+    tm = ShapeGenerator(port_cfg(cfg))
     bridge.load_jax_params(tm, jax.device_get(params))
     got = tm(t(boxes), t(lab_emb), t(valid), t(z))
     assert got.dtype == torch.float32
@@ -98,7 +103,7 @@ def test_box_generator_sample(cfg):
         k_rng, g_rng = jax.random.split(k2)
         cg.append(jax.random.gumbel(k_rng, (b, cfg.OBJ.GMM_COMPONENTS)))
         bn.append(jax.random.normal(g_rng, (b, 4)))
-    tm = BoxGenerator(cfg)
+    tm = BoxGenerator(port_cfg(cfg))
     bridge.load_jax_params(tm, jax.device_get(params))
     got = tm.sample(t(caps), t(lens), t(jnp.stack(lg)), t(jnp.stack(cg)),
                     t(jnp.stack(bn)))
@@ -129,7 +134,7 @@ def _gnet_case(cfg, params=None, seed=0):
                                         *args, rng))
     want = jm.apply(params, *args, rng)
     eps = jax.random.normal(rng, (b, cfg.GAN.CONDITION_DIM), jnp.float32)
-    tm = GNet(cfg)
+    tm = GNet(port_cfg(cfg))
     bridge.load_jax_params(tm, params)
     with torch.no_grad():
         got = tm(t(z), t(sent), t(words), t(mask), t(lab_emb), t(boxes),
@@ -160,7 +165,7 @@ def test_gnet_bf16(gnet_params):
     params, _, want32 = gnet_params
     cfg16 = tiny("bfloat16")
     _, got, want = _gnet_case(cfg16, params)
-    assert GNet(cfg16).dtype == torch.bfloat16
+    assert GNet(port_cfg(cfg16)).dtype == torch.bfloat16
     assert all(g.dtype == torch.float32 for g in got["images"])  # tanh head
     assert_bf16_images_close(got["images"], want["images"],
                              want32["images"])
@@ -201,7 +206,7 @@ def test_init_stage_flat_groupnorm_grouping():
 def test_stage_dtypes_stay_fp32_under_bf16_config():
     """Only GNet follows cfg.DTYPE; the text encoder, Stage A and Stage B
     run fp32 through their module defaults."""
-    cfg16 = tiny("bfloat16")
+    cfg16 = port_cfg(tiny("bfloat16"))
     caps, lens = example_batch(cfg16)
     words, sent = build_text_encoder(cfg16)(t(caps), t(lens))
     assert words.dtype == sent.dtype == torch.float32
@@ -213,3 +218,94 @@ def test_stage_dtypes_stay_fp32_under_bf16_config():
                 torch.ones(b, o), torch.randn(b, o, 1, 1, 8))
     assert logits.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in GNet(cfg16).parameters())
+
+
+def _images(size, b=2, seed=10):
+    return np.random.default_rng(seed).uniform(
+        -1, 1, (b, size, size, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("size", [16, 32, 64, 128])
+def test_dnet_trunk_heads_and_whole(cfg, size):
+    """Both branches of the trunk (with and without the 3x3 block above
+    64 px); the 4x4 stride-1 logit convs pad (1, 2) like flax "SAME"."""
+    r = np.random.default_rng(size)
+    img = _images(size)
+    lay = r.uniform(0, 1, (2, size, size, 1)).astype(np.float32)
+    sent = r.normal(size=(2, cfg.TEXT.EMBEDDING_DIM)).astype(np.float32)
+    jm = jdisc.DNet(cfg.GAN.DF_DIM, size)
+    params = jm.init(jax.random.PRNGKey(size), jnp.asarray(img),
+                     jnp.asarray(sent), jnp.asarray(lay))
+    w_trunk = jm.apply(params, jnp.asarray(img), jnp.asarray(lay),
+                       method="trunk")
+    w_heads = jm.apply(params, w_trunk, jnp.asarray(sent), method="heads")
+    w_uncond = jm.apply(params, w_trunk, method="heads")
+    w_whole = jm.apply(params, jnp.asarray(img), jnp.asarray(sent),
+                       jnp.asarray(lay))
+    tm = tdisc.DNet(cfg.GAN.DF_DIM, size, cfg.TEXT.EMBEDDING_DIM)
+    bridge.load_jax_params(tm, jax.device_get(params))
+    g_trunk = tm.trunk(t(img), t(lay))
+    assert g_trunk.shape == w_trunk.shape
+    np.testing.assert_allclose(n(g_trunk), n(w_trunk), atol=1e-4)
+    g_heads = tm.heads(t(w_trunk), t(sent))
+    assert set(tm.heads(t(w_trunk))) == set(w_uncond) == {"uncond"}
+    g_whole = tm(t(img), t(sent), t(lay))
+    for got, want in ((g_heads, w_heads), (g_whole, w_whole)):
+        assert set(got) == set(want) == {"uncond", "cond"}
+        for k in want:
+            assert got[k].dtype == torch.float32
+            np.testing.assert_allclose(n(got[k]), n(want[k]), atol=1e-4)
+
+
+def _obj_case(cfg, seed=11, b=2):
+    labels, boxes, valid, _ = _layout(cfg, seed, b)
+    boxes[~valid.astype(bool)] = 0.0  # padded objects carry zero boxes
+    lab_emb = np.random.default_rng(seed).normal(
+        size=(*labels.shape, cfg.OBJ.LABEL_DIM)).astype(np.float32)
+    return _images(cfg.branch_sizes[-1], b, seed), boxes, lab_emb
+
+
+def test_object_dnet(cfg):
+    img, boxes, lab_emb = _obj_case(cfg)
+    args = [jnp.asarray(a) for a in (img, boxes, lab_emb)]
+    jm = jdisc.ObjectDNet(cfg)
+    params = jm.init(jax.random.PRNGKey(3), *args)
+    want = jm.apply(params, *args)
+    tm = tdisc.ObjectDNet(port_cfg(cfg))
+    bridge.load_jax_params(tm, jax.device_get(params))
+    got = tm(t(img), t(boxes), t(lab_emb))
+    assert got["obj"].shape == (2, cfg.OBJ.MAX_OBJECTS)
+    assert got["cls"].shape == (2, cfg.OBJ.MAX_OBJECTS, cfg.OBJ.NUM_CLASSES)
+    for k in ("obj", "cls"):
+        np.testing.assert_allclose(n(got[k]), n(want[k]), atol=1e-4)
+
+
+def test_object_dnet_bf16_logits_are_fp32():
+    cfg = tiny("bfloat16")
+    tm = tdisc.ObjectDNet(port_cfg(cfg), torch.bfloat16)
+    img, boxes, lab_emb = _obj_case(cfg)
+    out = tm(t(img), t(boxes), t(lab_emb))
+    assert out["obj"].dtype == out["cls"].dtype == torch.float32
+    # one DNet per scale (16, 32, 64 px), each down to 4x4
+    dnets = tdisc.build_discriminators(port_cfg(cfg), torch.bfloat16)
+    assert [d.n_down for d in dnets] == [2, 3, 4]
+    assert all(d.dtype == torch.bfloat16 for d in dnets)
+
+
+def test_image_encoder(cfg):
+    img = _images(cfg.branch_sizes[-1], seed=12)
+    jm = j_image_encoder(cfg)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(img))
+    w_reg, w_glob = jm.apply(params, jnp.asarray(img))
+    tm = build_image_encoder(port_cfg(cfg))
+    bridge.load_jax_params(tm, jax.device_get(params))
+    g_reg, g_glob = tm(t(img))
+    assert g_reg.shape == w_reg.shape and g_glob.shape == w_glob.shape
+    np.testing.assert_allclose(n(g_reg), n(w_reg), atol=1e-4)
+    np.testing.assert_allclose(n(g_glob), n(w_glob), atol=1e-4)
+
+
+def test_inception_backbone_is_refused():
+    cfg = port_cfg(tiny("float32", TEXT={"CNN_BACKBONE": "inception"}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_image_encoder(cfg)

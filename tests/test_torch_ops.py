@@ -1,6 +1,8 @@
 """Parity of the port's ops with the JAX package at fp32: GroupNorm(+GLU)
-(the twin of kernel K1, against the JAX reference and the Pallas kernel in
-interpret mode), attention, rasterization, resizes and SAME padding.
+(the twin of kernel K1 and the VJP that K1's autograd Function uses as its
+backward, against the JAX reference and the Pallas kernel in interpret
+mode), attention (DAMSM's too, against JAX and ``tests/goldens.npz``),
+rasterization and the layout canvas, resizes and SAME padding.
 
 Tolerances: fp32 atol 1e-5, rtol 1e-5 (same math, different summation
 order). Where a bf16 path is compared, atol/rtol 2e-2: bf16 keeps 8 bits,
@@ -25,6 +27,7 @@ from objgan_tpu_torch.models.generator import upsample_nearest2x
 from objgan_tpu_torch.ops import attention as tatt
 from objgan_tpu_torch.ops import groupnorm as tgn
 from objgan_tpu_torch.ops import rasterize as tras
+from tests.golden_utils import GOLDEN_PATH
 from tests.torch_parity import n, t
 
 torch.set_num_threads(2)
@@ -86,6 +89,30 @@ class TestGroupNormTwin:
         got = tgn.group_norm(t(x).reshape(b, -1, c), t(scale), t(bias), 32,
                              1e-6, use_glu)
         np.testing.assert_allclose(n(got), n(want), **TOL)
+
+    @pytest.mark.parametrize("use_glu", [False, True])
+    def test_backward_matches_jax_vjp(self, use_glu):
+        """K1's backward on the card is ``group_norm_backward_reference``,
+        the twin's VJP with the statistics recomputed: against ``jax.vjp``
+        of the JAX reference, as its ``custom_vjp`` backward computes it."""
+        x, scale, bias = _gn_inputs((2, 6, 6, 96), 5)
+        c_out = 48 if use_glu else 96
+        g = np.random.default_rng(6).normal(size=(2, 6, 6, c_out)).astype(
+            np.float32)
+        _, pull = jax.vjp(
+            lambda a, s, b: jgn.group_norm_reference(a, s, b, 32, 1e-6,
+                                                     use_glu),
+            jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+        want = pull(jnp.asarray(g))
+        got = tgn.group_norm_backward_reference(t(x), t(scale), t(bias), 32,
+                                                1e-6, use_glu, t(g))
+        for gv, wv in zip(got, want):
+            np.testing.assert_allclose(n(gv), n(wv), atol=1e-4, rtol=1e-5)
+        only_dx = tgn.group_norm_backward_reference(
+            t(x), t(scale), t(bias), 32, 1e-6, use_glu, t(g),
+            needs=(True, False, False))
+        assert only_dx[1] is None and only_dx[2] is None
+        np.testing.assert_array_equal(n(only_dx[0]), n(got[0]))
 
     def test_cuda_entry_refuses_cpu_tensor(self):
         x = torch.zeros(1, 16, 64)
@@ -181,6 +208,27 @@ class TestAttention:
         np.testing.assert_allclose(n(gc), n(wc), **TOL)
         assert not n(ga)[0, 2].any()  # padded object: zero attention
 
+    def test_damsm_attention(self):
+        q, src, mask, *_ = _attn_inputs(4)
+        valid = (~mask).astype(np.float32)
+        wc, wa = jatt.damsm_attention(jnp.asarray(src), jnp.asarray(q), 4.0,
+                                      jnp.asarray(valid))
+        gc, ga = tatt.damsm_attention(t(src), t(q), 4.0, t(valid))
+        assert gc.dtype == ga.dtype == torch.float32
+        np.testing.assert_allclose(n(ga), n(wa), **TOL)
+        np.testing.assert_allclose(n(gc), n(wc), **TOL)
+
+    def test_damsm_attention_goldens(self):
+        """The fp32 goldens of ``tests/golden_utils.py`` (its inputs
+        remade with the same JAX keys)."""
+        goldens = np.load(GOLDEN_PATH)
+        ks = jax.random.split(jax.random.PRNGKey(1234), 8)
+        q = jax.random.normal(ks[0], (2, 12, 16))
+        s = jax.random.normal(ks[1], (2, 7, 16))
+        gc, ga = tatt.damsm_attention(t(q), t(s), 4.0)
+        np.testing.assert_allclose(n(ga), goldens["damsm_attn"], **TOL)
+        np.testing.assert_allclose(n(gc), goldens["damsm_w"], **TOL)
+
     @pytest.mark.parametrize("ctx", [None, "bfloat16"])
     def test_paste_object_context(self, ctx):
         _, _, _, oq, valid, maps = _attn_inputs(3)
@@ -218,6 +266,16 @@ class TestRasterize:
         want = jras.paste_masks(jnp.asarray(m), jnp.asarray(b), 16, 16)
         got = tras.paste_masks(t(m), t(b), 16, 16)
         np.testing.assert_allclose(n(got), n(want), **TOL)
+
+
+    def test_layout_map(self):
+        m = np.random.default_rng(7).uniform(0, 1, (2, 3, 16, 16)).astype(
+            np.float32)
+        valid = np.array([[1, 1, 0], [1, 0, 0]], np.float32)
+        want = jras.layout_map(jnp.asarray(m), jnp.asarray(valid))
+        got = tras.layout_map(t(m), t(valid))
+        assert got.shape == (2, 16, 16, 1)
+        np.testing.assert_array_equal(n(got), n(want))
 
 
 class TestResizeAndPadding:

@@ -16,7 +16,7 @@ from objgan_tpu.pipeline_e2e import ObjGanPipeline as JPipeline
 from objgan_tpu_torch.pipeline_e2e import ObjGanPipeline, draw_noise
 from tests.torch_parity import (assert_bf16_images_close, example_batch,
                                 jax_stage_params, jax_states, n,
-                                replay_noise, t, tiny)
+                                port_cfg, replay_noise, t, tiny, ttiny)
 
 torch.set_num_threads(2)
 
@@ -37,7 +37,7 @@ def _run(dtype, params):
     states = jax_states(params)
     want = jax.jit(lambda c, l, r: jpipe.generate(states, c, l, r))(
         jnp.asarray(caps), jnp.asarray(lens), rng)
-    pipe = ObjGanPipeline(cfg)
+    pipe = ObjGanPipeline(port_cfg(cfg))
     pipe.load_jax_params(params["box"], params["shape_g"],
                          params["shape_label_table"], params["gan_g"],
                          params["text"], params["gan_label_table"])
@@ -85,7 +85,7 @@ def test_each_stage_keeps_its_own_label_table(params):
     tables; the port loads each into its own stage."""
     assert not np.allclose(params["shape_label_table"],
                            params["gan_label_table"])
-    pipe = ObjGanPipeline(tiny("float32"))
+    pipe = ObjGanPipeline(ttiny("float32"))
     pipe.load_jax_params(params["box"], params["shape_g"],
                          params["shape_label_table"], params["gan_g"],
                          params["text"], params["gan_label_table"])
@@ -96,7 +96,7 @@ def test_each_stage_keeps_its_own_label_table(params):
 
 
 def test_draw_noise_shapes_and_determinism():
-    cfg = tiny("bfloat16")
+    cfg = ttiny("bfloat16")
     a = draw_noise(cfg, 3, torch.Generator().manual_seed(5), "cpu")
     b = draw_noise(cfg, 3, torch.Generator().manual_seed(5), "cpu")
     want = {
@@ -115,7 +115,7 @@ def test_draw_noise_shapes_and_determinism():
 
 
 def test_fresh_pipeline_generates_finite_images():
-    cfg = tiny("bfloat16")
+    cfg = ttiny("bfloat16")
     pipe = ObjGanPipeline.fresh(cfg, seed=0, device="cpu")
     caps, lens = example_batch(cfg, batch=2)
     out = pipe.generate(t(caps), t(lens),

@@ -4,11 +4,14 @@ pipeline replayed as explicit noise tensors, and numpy <-> torch glue.
 
 Inputs and noise are made with numpy or by JAX and handed to both packages
 as numpy arrays; the port's modules get the JAX params through
-``objgan_tpu_torch.core.bridge``.
+``objgan_tpu_torch.core.bridge``. JAX modules take the JAX package's
+``Config``, the port's modules the port's own copy (``port_cfg``,
+``ttiny``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import jax
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from objgan_tpu.core.config import tiny_test_config
+from objgan_tpu_torch.core import config as port_config
 
 torch.set_num_threads(2)
 
@@ -24,6 +28,17 @@ torch.set_num_threads(2)
 def tiny(dtype: str = "float32", **overrides):
     """tiny_test_config in the given compute dtype (+ nested overrides)."""
     return tiny_test_config().merged({"DTYPE": dtype, **overrides})
+
+
+def port_cfg(cfg):
+    """The port's ``Config`` holding the same values as a JAX-package one."""
+    return port_config.Config().merged(dataclasses.asdict(cfg))
+
+
+def ttiny(dtype: str = "float32", **overrides):
+    """``tiny`` as the port's own config."""
+    return port_config.tiny_test_config().merged({"DTYPE": dtype,
+                                                  **overrides})
 
 
 def t(x, dtype=None) -> torch.Tensor:
