@@ -16,7 +16,12 @@ ROI 7), and checks every hand-written kernel on them:
                 [-1, 1], and K1's launch count rises by the number of
                 GroupNorm layers per batch;
 3. kernels      every K1 call of one served batch replayed through the
-                kernel, its plain PyTorch twin and ``F.group_norm``;
+                kernel (twice, held bitwise equal), its plain PyTorch twin
+                and ``F.group_norm``; per shape the launch plan (regime,
+                cluster size), the kernels that one call launches (the
+                kernel nodes of a CUDA graph captured around it: exactly
+                1) and the achieved GB/s over 1R + 1W and over 2R + 1W
+                bytes;
 4. stages       synchronised wall time of Stage A, B and C of one batch;
 5. small        the tiny fp32 config served on the GPU against the same
                 weights and noise on the CPU (the twins);
@@ -31,8 +36,8 @@ ROI 7), and checks every hand-written kernel on them:
 7. profile      one more train step under ``torch.profiler``: the device's
                 busy share and the kernels that take its time;
 8. train_k1     every K1 call of one more train step (the bf16 G and
-                discriminators, the fp32 image encoder) replayed through
-                the kernel, its twin and ``F.group_norm``;
+                discriminators, the fp32 image encoder), checked as in
+                phase 3;
 9. roi          every K2/K3 call of that step replayed through the
                 kernels, their twins and, where torchvision is installed,
                 ``torchvision.ops.roi_align``;
@@ -40,14 +45,17 @@ ROI 7), and checks every hand-written kernel on them:
                 against the same weights, batch and noise on the CPU
                 (twins): metrics and every parameter's gradient.
 
-Times are device time from CUDA events around a CUDA-graph replay, median
-of 20, unless a line says otherwise. The bounds count each input read once
-and each output written once at 3.35 TB/s, or the arithmetic at
-67 TFLOP/s fp32, whichever is larger (H100 SXM data sheet). Any failure
-exits non-zero, and so does a host without a CUDA device, before anything
-is printed to stdout. The last lines are the kernel summary JSON, the
-card's ``name, power.limit`` from nvidia-smi, and ``{"ok": true,
-"device": {...}}``.
+Times are device time from CUDA events around a CUDA-graph replay of one
+call, median of 20, unless a line says otherwise. K1 and ``F.group_norm``
+are also timed with ten calls of a shape in one graph (a tenth of the
+replay, so the graph launch's own cost is spread over ten calls): the
+JSON keys ``ms_10_per_graph`` and ``library_ms_10_per_graph``. The bounds count
+each input read once and each output written once at 3.35 TB/s, or the
+arithmetic at 67 TFLOP/s fp32, whichever is larger (H100 SXM data sheet).
+Any failure exits non-zero, and so does a host without a CUDA device,
+before anything is printed to stdout. The last lines are the kernel
+summary JSON, the card's ``name, power.limit`` from nvidia-smi, and
+``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -128,11 +136,13 @@ def _event_ms(fn, reps):
     return statistics.median(times)
 
 
-def time_ms(fn, reps=20):
-    """(device ms, eager ms): medians of ``reps`` CUDA-event timings of one
-    call. Device time replays the call captured in a CUDA graph, so the
-    host's launch overhead is out of it; eager time includes the host work
-    the device waits for when it is otherwise idle."""
+def time_ms(fn, reps=20, calls=1):
+    """(device ms, eager ms) of one call: medians of ``reps`` CUDA-event
+    timings. Device time replays ``calls`` calls captured in one CUDA graph
+    and divides by ``calls``, so the host's launch overhead is out of it
+    (and with calls > 1 the graph launch's own cost is spread too); eager
+    time includes the host work the device waits for when it is otherwise
+    idle."""
     import torch
 
     side = torch.cuda.Stream()
@@ -142,9 +152,46 @@ def time_ms(fn, reps=20):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
-    return _event_ms(graph.replay, reps), _event_ms(fn, reps)
+    return _event_ms(graph.replay, reps) / calls, _event_ms(fn, reps)
+
+
+def graph_kernels(fn):
+    """(kernel nodes, all nodes) of a CUDA graph captured around one call of
+    ``fn``, counted with libcuda's cuGraphGetNodes and cuGraphNodeGetType."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw, count = graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    graph.reset()
+    return kinds.count(0), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def phase_device():
@@ -286,18 +333,24 @@ def _check_k1(phase, records, per):
     error, totals over the calls: the work of one ``per``)."""
     import torch
 
+    from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
-                                                group_norm_reference)
+                                                group_norm_reference,
+                                                plan_for)
 
     log(phase, f"recorded {len(records)} K1 calls of one {per}; tolerance "
-        f"fp32 atol {FP32_ATOL}, bf16 atol {BF16_ATOL} rtol {BF16_RTOL}")
+        f"fp32 atol {FP32_ATOL}, bf16 atol {BF16_ATOL} rtol {BF16_RTOL}; "
+        f"each call run twice and held bitwise equal")
     max_err = 0.0
     shapes = {}
     for mod, x in records:
         b, c = x.shape[0], x.shape[-1]
         x3 = x.reshape(b, -1, c).contiguous()
         args = (mod.weight, mod.bias, mod.num_groups, mod.eps, mod.use_glu)
-        got = group_norm_cuda(x3, *args).float()
+        got = group_norm_cuda(x3, *args)
+        check(bool(torch.equal(got, group_norm_cuda(x3, *args))),
+              f"K1 is not bit-reproducible at {tuple(x3.shape)}")
+        got = got.float()
         want = group_norm_reference(x3, *args).float()
         err = (got - want).abs()
         e = float(err.max())
@@ -326,13 +379,25 @@ def _check_k1(phase, records, per):
                          bias.to(x3.dtype), eps)
         return F.glu(y, dim=1) if glu else y
 
-    tot = {"ms": 0.0, "plain_ms": 0.0, "eager_ms": 0.0,
-           "plain_eager_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    tot = {"ms": 0.0, "ms_10_per_graph": 0.0, "plain_ms": 0.0, "eager_ms": 0.0,
+           "plain_eager_ms": 0.0, "library_ms": 0.0,
+           "library_ms_10_per_graph": 0.0, "bound_ms": 0.0, "regimes": {}}
     for key, s in shapes.items():
         x3, args = s["x"], s["args"]
+        plan = plan_for(x3, args[-1])
+        kernels, nodes = graph_kernels(lambda: group_norm_cuda(x3, *args))
+        check(kernels == 1 and nodes == 1,
+              f"one K1 call at {tuple(x3.shape)} captured {kernels} kernels "
+              f"in {nodes} graph nodes")
         k_ms, k_eager = time_ms(lambda: group_norm_cuda(x3, *args))
+        k_ten, _ = time_ms(lambda: group_norm_cuda(x3, *args), calls=10)
+        # clusters of the plan the card holds at once (occupancy query)
+        held = groupnorm._schedulable[(
+            x3.device.index or 0, groupnorm._DTYPE_CODE[x3.dtype], plan.vec,
+            args[-1], plan.cluster, plan.smem)]
         p_ms, p_eager = time_ms(lambda: group_norm_reference(x3, *args))
         l_ms, _ = time_ms(lambda: library(x3, *args))
+        l_ten, _ = time_ms(lambda: library(x3, *args), calls=10)
         lib_err = float((library(x3, *args).permute(0, 2, 1).float()
                          - group_norm_reference(x3, *args).float()
                          ).abs().max())
@@ -341,26 +406,42 @@ def _check_k1(phase, records, per):
                   + 2 * 4 * c)  # x read once, y written once, scale, bias
         b_ms, _ = bound_ms(nbytes, 8 * x3.numel())
         n = s["count"]
-        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("eager_ms", k_eager),
+        for k, v in (("ms", k_ms), ("ms_10_per_graph", k_ten),
+                     ("plain_ms", p_ms), ("eager_ms", k_eager),
                      ("plain_eager_ms", p_eager), ("library_ms", l_ms),
-                     ("bound_ms", b_ms)):
+                     ("library_ms_10_per_graph", l_ten), ("bound_ms", b_ms)):
             tot[k] += n * v
-        gbps = (2 * x3.numel() * x3.element_size()
-                + x3.numel() * x3.element_size() // (2 if glu else 1)
-                ) / (k_ms * 1e6)
+        tot["regimes"][plan.regime] = tot["regimes"].get(plan.regime, 0) + n
+        # achieved rate (ten calls per graph) over 1R + 1W (x read once)
+        # and 2R + 1W (x read twice): above 3.35 TB/s over 2R + 1W, the
+        # second read hit L2
+        x_bytes = x3.numel() * x3.element_size()
+        gbps_1r = nbytes / (k_ten * 1e6)
+        gbps_2r = (nbytes + x_bytes) / (k_ten * 1e6)
         log(phase, f"(B={b}, N={nn_}, C={c}) {dt} groups {g} "
-            f"{'GN+GLU' if glu else 'GN'} x{n}: max err "
-            f"{s['err']:.3g} ({s['ulps']:.2f} bf16 ulp) | device K1 "
-            f"{1000 * k_ms:.1f} us ({gbps:.0f} GB/s), bound "
-            f"{1000 * b_ms:.1f} us, twin {1000 * p_ms:.1f} us, "
+            f"{'GN+GLU' if glu else 'GN'} x{n}: {plan.regime} cluster "
+            f"{plan.cluster} ({held} at once), {plan.res_rows}/{plan.rows} "
+            f"rows resident, "
+            f"{kernels} kernel per call | max err "
+            f"{s['err']:.3g} ({s['ulps']:.2f} bf16 ulp) | device, one call "
+            f"per graph: K1 {1000 * k_ms:.1f} us, bound {1000 * b_ms:.1f} "
+            f"us, twin {1000 * p_ms:.1f} us, "
             f"{'F.group_norm+F.glu' if glu else 'F.group_norm'} "
-            f"{1000 * l_ms:.1f} us (max err {lib_err:.3g}) | eager K1 "
-            f"{1000 * k_eager:.1f} us, twin {1000 * p_eager:.1f} us")
-    log(phase, f"all {len(records)} calls agree; per {per}, device: K1 "
+            f"{1000 * l_ms:.1f} us (max err {lib_err:.3g}) | ten per graph: "
+            f"K1 {1000 * k_ten:.1f} us ({gbps_1r:.0f} GB/s over 1R+1W, "
+            f"{gbps_2r:.0f} over 2R+1W), library {1000 * l_ten:.1f} us | "
+            f"eager K1 {1000 * k_eager:.1f} us, twin {1000 * p_eager:.1f} us")
+    log(phase, f"all {len(records)} calls agree and are bit-reproducible; "
+        f"a CUDA graph of one call of each of the {len(shapes)} shapes holds "
+        f"one kernel node; regimes " + ", ".join(
+            f"{k} {v}" for k, v in sorted(tot["regimes"].items())))
+    log(phase, f"per {per}, device, one call per graph: K1 "
         f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, twin "
         f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms "
-        f"(two calls for each GN+GLU); eager: K1 {tot['eager_ms']:.3f} ms "
-        f"vs twin {tot['plain_eager_ms']:.3f} ms")
+        f"(two calls for each GN+GLU); ten per graph: K1 "
+        f"{tot['ms_10_per_graph']:.3f} ms, library "
+        f"{tot['library_ms_10_per_graph']:.3f} ms; eager: K1 "
+        f"{tot['eager_ms']:.3f} ms vs twin {tot['plain_eager_ms']:.3f} ms")
     return max_err, tot
 
 
@@ -619,7 +700,7 @@ def phase_train_profile(cfg, trainer):
         by_name[name][0] += ms
         by_name[name][1] += 1
         group = ("K1 GroupNorm" if re.search(
-                     "gn_(stats|finalize|apply)_kernel", name) else
+                     "gn_fused_kernel", name) else
                  "K2/K3 ROI-align" if re.search("roi_(fwd|bwd)_kernel",
                                                 name) else
                  "conv / matmul" if re.search(
@@ -929,13 +1010,19 @@ def main():
         "max_abs_err": max(k1_err, k1_train_err), "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": k1["library_ms"],
+        "regimes": k1["regimes"], "ms_10_per_graph": k1["ms_10_per_graph"],
+        "library_ms_10_per_graph": k1["library_ms_10_per_graph"],
         # K1 runs on both paths: the keys above are per served batch (the
         # error the larger of both paths'), "train" per train step; the
         # library time takes two calls (F.group_norm, F.glu) for a GN+GLU
         "train": {"launches": train["k1"], "max_abs_err": k1_train_err,
                   "ms": k1_train["ms"], "plain_ms": k1_train["plain_ms"],
                   "bound_ms": k1_train["bound_ms"],
-                  "library_ms": k1_train["library_ms"]},
+                  "library_ms": k1_train["library_ms"],
+                  "regimes": k1_train["regimes"],
+                  "ms_10_per_graph": k1_train["ms_10_per_graph"],
+                  "library_ms_10_per_graph":
+                      k1_train["library_ms_10_per_graph"]},
     }]
     for name, replaces, key in (("roi_align_fwd", K2_REPLACES, "K2"),
                                 ("roi_align_bwd", K3_REPLACES, "K3")):

@@ -12,29 +12,84 @@
 //   the sigmoid, after the product).
 //
 // Bound: device-memory bytes. The arithmetic is a few flops per element, so
-// the time is the traffic: one read of x for the statistics, then one read of
-// x and one write of y for the apply pass (1R for stats + 1R/1W for apply).
-// The TPU kernel kept x resident in VMEM to read it once; an SM has no room
-// for a (N, C) slice, so this design takes the second read and spends its
-// effort on spreading the statistics over every SM instead:
-//   1. stats:    grid (S, B). Each block sums a contiguous range of rows of
-//                x[b] per channel, threads striding over channels with
-//                16-byte vector loads along contiguous C, and writes fp32
-//                partials to a (B, S, C) scratch. No atomics: the reduction
-//                order is fixed, so the output is bit-reproducible run to run.
-//   2. finalize: grid (B). Sums the S partials per channel, then the
-//                channels of each group, and writes (a_c, b_c) per channel.
-//   3. apply:    grid-stride loop over 16-byte vectors of the output.
-// Reading x once (keeping the slice in shared memory across a cluster) is
-// left to a later change.
+// the least time is one read of x and one write of y. The TPU kernel reached
+// it by holding a batch element's (N, C) slice in VMEM. This design does the
+// same across a thread-block cluster: ONE launch, grid (cluster, B), one
+// cluster per batch element, each CTA owning a contiguous row range of x[b].
+//   1. The rows a CTA keeps ("resident") are copied into its shared memory,
+//      by bulk async copies (cp.async.bulk) on up to kChunks mbarriers, so
+//      the statistics start on the first chunk while the rest is in flight
+//      (by the threads for small shares and for a vector width of 1).
+//      Rows beyond those ("streaming") are read with 16-byte loads, or
+//      through a ring of kStages bulk-copied slots for long streams.
+//   2. Per-channel fp32 sums and sums of squares: threads stride over rows
+//      with 16-byte vectors along C, then a fixed-order tree over the block.
+//   3. The cluster gathers every CTA's per-channel partials through
+//      distributed shared memory behind barrier.cluster and sums them in
+//      rank order: every CTA computes the same group statistics and
+//      per-channel (a_c, b_c). No atomics, no global scratch: the output is
+//      bit-reproducible run to run.
+//   4. Apply (+GLU) and write y: streamed rows are read a second time
+//      (through the ring they are marked evict-last in L2 on their first
+//      read, and y evict-first), resident rows come from shared memory. x
+//      is read from HBM once when the slice is resident.
+// This replaces a three-launch design (stats, finalize, apply) that read x
+// twice and passed partial sums through a (B, S, C) global scratch.
+//
+// The launch plan (regime, cluster size, rows per CTA, resident and ring
+// rows, dynamic shared memory) is ops/groupnorm.py::_plan. What limits it on
+// an H100: a cluster's phases (read, reduce, write) run in turn, so a call
+// goes fastest when all of its clusters run in one wave, and the card
+// co-schedules 16 clusters of 12 at two CTAs per SM but only 14 of 14 or 16
+// (GPCs of 12 to 18 SMs). So a CTA keeps to half an SM's shared memory and
+// a batch of 16 takes clusters of at most 12. On the served batch
+// (cfg/eval_coco.yml) Stage B's (160, 64, 256) fp32 and Stage C's bf16
+// calls up to (16, 4096, 96) are resident (clusters of 1 to 8), as is
+// (160, 4096, 64) fp32 (clusters of 16, several waves); (160, 256|1024, ·)
+// fp32 stream at cluster 1 and the bf16 calls from (16, 4096, 192) up at
+// cluster 12, through the ring where a CTA streams more than 96 KB. On the
+// train step the discriminators' bf16 calls are resident (clusters of 1 to
+// 12) and the image encoder's fp32 (16, 16384, 32) streams at cluster 12.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxCluster = 16;
+constexpr int kChunks = 8;          // mbarriers over the resident rows
+constexpr int kStages = 4;          // ring slots for the streamed rows
+constexpr int kPiece = 32768;       // bytes per bulk copy
+constexpr int kMaxSmem = 232448;    // opt-in dynamic shared memory per block
+constexpr int kUnroll = 4;          // rows in flight per thread
+
+struct Params {
+  const void* x;
+  void* y;
+  const float* scale;
+  const float* bias;
+  int N, C, G;
+  int rows;       // rows per CTA (the last may have fewer)
+  int res_rows;   // rows per CTA kept in shared memory
+  int ring_rows;  // rows per ring slot for the rest; 0: 16-byte loads
+  int bulk;       // copy the resident rows with bulk copies (else threads)
+  float eps;
+};
+
+// Bytes of shared memory before the ring and the row tile: the mbarriers,
+// a scratch of kThreads * V floats (the block reduction, then the cluster's
+// partials gathered) and three 2C float arrays (this CTA's partials, the
+// cluster's sums, the affine). ops/groupnorm.py's _fixed_smem computes the
+// same number.
+__host__ __device__ inline int tile_offset(int C, int V) {
+  const int raw = (kChunks + kStages) * 8 + kThreads * V * 4 + 6 * C * 4;
+  return (raw + 127) / 128 * 128;
+}
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -63,6 +118,11 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// two fp32 values rounded to bf16 and back, as round_to<bf16> each
+__device__ __forceinline__ float2 round_pair(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
   const Pack<T, V> pk = *reinterpret_cast<const Pack<T, V>*>(p);
@@ -70,232 +130,542 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[V]) {
   for (int j = 0; j < V; ++j) out[j] = to_f32(pk.v[j]);
 }
 
+// `once` stores a 16-byte vector to global memory evict-first in L2
+// (st.global.cs), so that it does not push out rows that are read again
 template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&in)[V]) {
+__device__ __forceinline__ void store_vec(T* p, const float (&in)[V],
+                                          bool once = false) {
   Pack<T, V> pk;
 #pragma unroll
   for (int j = 0; j < V; ++j) pk.v[j] = from_f32<T>(in[j]);
+  if constexpr (sizeof(pk) == 16) {
+    if (once) {
+      __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(&pk));
+      return;
+    }
+  }
   *reinterpret_cast<Pack<T, V>*>(p) = pk;
 }
 
-// Partial per-channel sums of rows [s*rows_per_split, (s+1)*rows_per_split)
-// of x[b] into psum/psq[(b*S + s)*C + c].
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ psum,
-                    float* __restrict__ psq, int N, int C,
-                    int rows_per_split) {
-  extern __shared__ float smem[];  // 2 * kThreads * V floats
-  float* ssum = smem;
-  float* ssq = smem + kThreads * V;
-  const int b = blockIdx.y, s = blockIdx.x, S = gridDim.x;
-  const int nvec = C / V;
-  const int tpr = nvec < kThreads ? nvec : kThreads;  // threads along a row
-  const int rpi = kThreads / tpr;                       // rows per iteration
-  const int tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
-  const int r0 = s * rows_per_split;
-  const int r1 = min(N, r0 + rows_per_split);
-  const T* xb = x + (size_t)b * N * C;
-  const int width = tpr * V;  // channels covered by one column chunk
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// L2 eviction policies: rows read once go first, rows read again stay
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// global -> this CTA's shared memory, completion counted on bar, the lines
+// kept in L2 by `policy`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// 1 / x to within an ulp (MUFU.RCP): the sigmoid is rounded to T after it
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Sums rows [0, nrows) of src (row stride C) at channels [v*V, v*V + V)
+// into acc / acc2: this thread takes rows ty, ty + rpi, ..., U rows in
+// flight. With COPY each vector is also stored at the same place in dst.
+template <typename T, int V, int U, bool COPY>
+__device__ __forceinline__ void accumulate(const T* src, T* dst, int nrows,
+                                           int C, int v, int ty, int rpi,
+                                           float (&acc)[V], float (&acc2)[V]) {
+  for (int r = ty; r < nrows; r += U * rpi) {
+    float e[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * rpi;
+      if (rr < nrows) {
+        load_vec<T, V>(src + (size_t)rr * C + (size_t)v * V, e[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) e[u][j] = 0.f;
+      }
+    }
+    if (COPY) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = r + u * rpi;
+        if (rr < nrows) store_vec<T, V>(dst + (size_t)rr * C + (size_t)v * V,
+                                        e[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[j] += e[u][j];
+        acc2[j] = fmaf(e[u][j], e[u][j], acc2[j]);
+      }
+    }
+  }
+}
+
+// y rows [0, nrows) from src rows [0, nrows) (row strides C and c_out) at
+// output channels [c0, c0 + V): this thread takes rows oy, oy + rpo, ...
+// `once`: store evict-first (store_vec).
+template <typename T, int V, int U, bool GLU>
+__device__ __forceinline__ void apply_rows(
+    const T* src, T* dst, int nrows, int C, int c_out, int c0, int oy,
+    int rpo, const float (&a)[V], const float (&bb)[V], const float (&ag)[V],
+    const float (&bg)[V], bool once) {
+  for (int r = oy; r < nrows; r += U * rpo) {
+    float e[U][V], g[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * rpo;
+      if (rr < nrows) {
+        load_vec<T, V>(src + (size_t)rr * C + c0, e[u]);
+        if (GLU) load_vec<T, V>(src + (size_t)rr * C + c_out + c0, g[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int rr = r + u * rpo;
+      if (rr >= nrows) continue;
+      float out[V];
+      if constexpr (GLU && sizeof(T) == 2 && V % 2 == 0) {
+        // bf16 pairs: one instruction rounds two values
+#pragma unroll
+        for (int j = 0; j < V; j += 2) {
+          const float2 av = round_pair(fmaf(e[u][j], a[j], bb[j]),
+                                       fmaf(e[u][j + 1], a[j + 1], bb[j + 1]));
+          const float2 gv = round_pair(fmaf(g[u][j], ag[j], bg[j]),
+                                       fmaf(g[u][j + 1], ag[j + 1], bg[j + 1]));
+          const float2 sig = round_pair(rcp_approx(1.f + __expf(-gv.x)),
+                                        rcp_approx(1.f + __expf(-gv.y)));
+          out[j] = av.x * sig.x;  // rounded by the store
+          out[j + 1] = av.y * sig.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (!GLU) {
+            out[j] = e[u][j] * a[j] + bb[j];
+          } else {
+            const float av = round_to<T>(e[u][j] * a[j] + bb[j]);
+            const float gv = round_to<T>(g[u][j] * ag[j] + bg[j]);
+            const float sig = round_to<T>(rcp_approx(1.f + __expf(-gv)));
+            out[j] = av * sig;  // rounded by the store
+          }
+        }
+      }
+      store_vec<T, V>(dst + (size_t)rr * c_out + c0, out, once);
+    }
+  }
+}
+
+// One cluster per batch element (blockIdx.y), one CTA per cluster rank.
+template <typename T, int V, bool GLU>
+__global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kApplyUnroll = GLU ? 2 : kUnroll;  // GLU: two rows' x, gate
+  constexpr int kScratch = kThreads * V;           // floats
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const int N = p.N, C = p.C;
+  const int r0 = min(N, rank * p.rows);
+  const int r1 = min(N, r0 + p.rows);
+  const int nres = min(p.res_rows, r1 - r0);
+  const int s0 = r0 + nres;  // first streamed row
+  const bool bulk = V > 1 && p.bulk;
+
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // resident chunks
+  uint64_t* ring_bars = bars + kChunks;
+  float* red = reinterpret_cast<float*>(smem + (kChunks + kStages) * 8);
+  float* part = red + kScratch;  // this CTA's partials, read by the cluster
+  float* tot = part + 2 * C;     // the cluster's sums
+  float* coef = tot + 2 * C;     // scale and bias, then a_c and b_c
+  T* ring = reinterpret_cast<T*>(smem + tile_offset(C, V));
+  T* tile = ring + (size_t)kStages * p.ring_rows * C;
+  const T* xb = static_cast<const T*>(p.x) + (size_t)b * N * C;
+
+  // the streamed rows go through the ring twice (statistics, then apply):
+  // ring chunk j < 2 * nring covers rows s0 + (j % nring) * ring_rows, ...
+  const int nring =
+      V > 1 && p.ring_rows ? (r1 - s0 + p.ring_rows - 1) / p.ring_rows : 0;
+  auto ring_len = [&](int j) {
+    return min(p.ring_rows, r1 - s0 - (j % nring) * p.ring_rows);
+  };
+  auto ring_slot = [&](int j) {
+    return ring + (size_t)(j % kStages) * p.ring_rows * C;
+  };
+  auto fetch_ring = [&](int j) {  // one thread; kept in L2 for the apply
+    const uint32_t bytes = (uint32_t)ring_len(j) * C * sizeof(T);
+    mbar_expect_tx(&ring_bars[j % kStages], bytes);
+    bulk_copy(ring_slot(j), xb + (size_t)(s0 + (j % nring) * p.ring_rows) * C,
+              bytes, &ring_bars[j % kStages],
+              j < nring ? l2_evict_last() : l2_evict_first());
+  };
+  auto wait_ring = [&](int j) {
+    mbar_wait(&ring_bars[j % kStages], (j / kStages) & 1);
+  };
+
+  // 1. queue the first ring chunks and every resident row's copy up front
+  const int chunk_rows = (nres + kChunks - 1) / kChunks;
+  const int nchunks = chunk_rows ? (nres + chunk_rows - 1) / chunk_rows : 0;
+  if (V > 1 && threadIdx.x == 0) {
+    for (int k = 0; k < kChunks + kStages; ++k) mbar_init(&bars[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (V > 1 && threadIdx.x == 0) {
+    for (int j = 0; j < min(kStages, 2 * nring); ++j) fetch_ring(j);
+    for (int k = 0; bulk && k < nchunks; ++k) {
+      const int rows_k = min(chunk_rows, nres - k * chunk_rows);
+      const uint32_t bytes = (uint32_t)rows_k * C * sizeof(T);
+      const char* src = reinterpret_cast<const char*>(
+          xb + (size_t)(r0 + k * chunk_rows) * C);
+      char* dst = reinterpret_cast<char*>(tile + (size_t)k * chunk_rows * C);
+      mbar_expect_tx(&bars[k], bytes);
+      for (uint32_t off = 0; off < bytes; off += kPiece)
+        bulk_copy(dst + off, src + off, min((uint32_t)kPiece, bytes - off),
+                  &bars[k], l2_evict_first());
+    }
+  }
+  for (int c = threadIdx.x; c < C; c += kThreads) {  // while the rows land
+    coef[c] = p.scale[c];
+    coef[C + c] = p.bias[c];
+  }
+
+  // 2. per-channel partial sums of this CTA's rows. With a ring, C / V <=
+  // 256 (the plan sees to it): one column chunk, uniform loops.
+  const int nvec = C / V;
+  const int tpr = min(nvec, kThreads);  // threads along a row
+  const int rpi = kThreads / tpr;       // rows per iteration
+  const int tx = threadIdx.x % tpr, ty = threadIdx.x / tpr;
+  const bool active = ty < rpi;
+  const int width = tpr * V;  // channels covered by one column chunk
   for (int v0 = 0; v0 < nvec; v0 += tpr) {
+    const int v = v0 + tx;
+    const bool on = active && v < nvec;
     float acc[V], acc2[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = acc2[j] = 0.f;
-    const int v = v0 + tx;
-    if (ty < rpi && v < nvec) {
-      for (int r = r0 + ty; r < r1; r += rpi) {
-        float e[V];
-        load_vec<T, V>(xb + (size_t)r * C + (size_t)v * V, e);
+    for (int j = 0; j < nring; ++j) {  // streamed rows through the ring
+      wait_ring(j);
+      if (on)
+        accumulate<T, V, kUnroll, false>(ring_slot(j), nullptr, ring_len(j),
+                                         C, v, ty, rpi, acc, acc2);
+      __syncthreads();  // the slot is free again
+      if (threadIdx.x == 0 && j + kStages < 2 * nring)
+        fetch_ring(j + kStages);
+    }
+    if (!nring && on)  // streamed rows with 16-byte loads
+      accumulate<T, V, kUnroll, false>(xb + (size_t)s0 * C, nullptr, r1 - s0,
+                                       C, v, ty, rpi, acc, acc2);
+    if (bulk) {
+      for (int k = 0; k < nchunks; ++k) {
+        mbar_wait(&bars[k], 0);  // every thread: apply reads the whole tile
+        const int c_r0 = k * chunk_rows;
+        if (on)
+          accumulate<T, V, kUnroll, false>(
+              tile + (size_t)c_r0 * C, nullptr,
+              min(chunk_rows, nres - c_r0), C, v, ty, rpi, acc, acc2);
+      }
+    } else if (on) {  // the resident rows copied by the threads
+      accumulate<T, V, kUnroll, true>(xb + (size_t)r0 * C, tile, nres, C, v,
+                                      ty, rpi, acc, acc2);
+    }
+    // block reduction over ty, a tree in a fixed order: sums, then sums
+    // of squares; row y takes row y + half while h rows remain
+    for (int round = 0; round < 2; ++round) {
+      if (active) {
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          acc[j] += e[j];
-          acc2[j] = fmaf(e[j], e[j], acc2[j]);
+        for (int j = 0; j < V; ++j)
+          red[ty * width + tx * V + j] = round ? acc2[j] : acc[j];
+      }
+      __syncthreads();
+      for (int h = rpi; h > 1;) {
+        const int half = (h + 1) / 2;
+        for (int k = threadIdx.x; k < (h - half) * width; k += kThreads)
+          red[k] += red[k + half * width];
+        __syncthreads();
+        h = half;
+      }
+      for (int i = threadIdx.x; i < width; i += kThreads) {
+        const int c = v0 * V + i;
+        if (c < C) part[round * C + c] = red[i];
+      }
+      __syncthreads();
+    }
+  }
+
+  // 3. the cluster's sums: every rank's partials gathered through
+  // distributed shared memory into the scratch (a block of channels at a
+  // time, eight independent loads per thread in flight), then summed in
+  // rank order. A CTA alone needs no cluster barrier.
+  if (cs == 1) {
+    for (int c = threadIdx.x; c < 2 * C; c += kThreads) tot[c] = part[c];
+  } else {
+    cluster_arrive();
+    cluster_wait();
+    const int per = kScratch / cs;  // channels per block
+    for (int c0 = 0; c0 < 2 * C; c0 += per) {
+      const int nc = min(per, 2 * C - c0);
+      for (int i0 = threadIdx.x; i0 < cs * nc; i0 += 8 * kThreads) {
+        float got[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < cs * nc)
+            got[u] = *cluster.map_shared_rank(part + c0 + i % nc, i / nc);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < cs * nc) red[i] = got[u];
         }
       }
+      __syncthreads();
+      for (int c = threadIdx.x; c < nc; c += kThreads) {
+        float s = 0.f;
+        for (int q = 0; q < cs; ++q) s += red[q * nc + c];
+        tot[c0 + c] = s;
+      }
+      __syncthreads();
     }
-    // smem[ty][tx*V + j]
+  }
+  if (cs > 1) cluster_arrive();  // done reading the others' partials
+  __syncthreads();
+  const int cg_size = C / p.G;
+  const float count = (float)N * (float)cg_size;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const int g0 = c / cg_size * cg_size;
+    float s = 0.f, s2 = 0.f;
+    for (int k = 0; k < cg_size; ++k) {
+      s += tot[g0 + k];
+      s2 += tot[C + g0 + k];
+    }
+    const float mean = s / count;
+    const float var = fmaxf(s2 / count - mean * mean, 0.f);
+    const float a = rsqrtf(var + p.eps) * coef[c];
+    coef[C + c] -= mean * a;
+    coef[c] = a;
+  }
+  __syncthreads();
+
+  // 4. apply (+GLU): streamed rows again (likely L2 hits), then the tile
+  const int c_out = GLU ? C / 2 : C;
+  const int nvo = c_out / V;
+  const int tpo = min(nvo, kThreads);
+  const int rpo = kThreads / tpo;
+  const int ox = threadIdx.x % tpo, oy = threadIdx.x / tpo;
+  T* yb = static_cast<T*>(p.y) + (size_t)b * N * c_out;
+  for (int v0 = 0; v0 < nvo; v0 += tpo) {
+    const int v = v0 + ox;
+    const bool on = oy < rpo && v < nvo;
+    const int c0 = (on ? v : 0) * V;
+    float a[V], bb[V], ag[V], bg[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      ssum[threadIdx.x * V + j] = acc[j];
-      ssq[threadIdx.x * V + j] = acc2[j];
+      a[j] = coef[c0 + j];
+      bb[j] = coef[C + c0 + j];
+      ag[j] = GLU ? coef[c_out + c0 + j] : 0.f;
+      bg[j] = GLU ? coef[C + c_out + c0 + j] : 0.f;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < width; i += kThreads) {
-      const int c = v0 * V + i;
-      if (c < C) {
-        float a = 0.f, a2 = 0.f;
-        for (int y = 0; y < rpi; ++y) {
-          a += ssum[y * width + i];
-          a2 += ssq[y * width + i];
-        }
-        const size_t o = ((size_t)b * S + s) * C + c;
-        psum[o] = a;
-        psq[o] = a2;
-      }
+    for (int j = nring; j < 2 * nring; ++j) {
+      wait_ring(j);
+      if (on)
+        apply_rows<T, V, kApplyUnroll, GLU>(
+            ring_slot(j),
+            yb + (size_t)(s0 + (j - nring) * p.ring_rows) * c_out,
+            ring_len(j), C, c_out, c0, oy, rpo, a, bb, ag, bg, true);
+      __syncthreads();
+      if (threadIdx.x == 0 && j + kStages < 2 * nring)
+        fetch_ring(j + kStages);
     }
-    __syncthreads();
+    if (!nring && on)
+      apply_rows<T, V, kApplyUnroll, GLU>(
+          xb + (size_t)s0 * C, yb + (size_t)s0 * c_out, r1 - s0, C, c_out,
+          c0, oy, rpo, a, bb, ag, bg, true);
+    if (on)
+      apply_rows<T, V, kApplyUnroll, GLU>(tile, yb + (size_t)r0 * c_out, nres,
+                                          C, c_out, c0, oy, rpo, a, bb, ag,
+                                          bg, s0 < r1);
   }
-}
-
-// Per batch element: group statistics and the per-channel affine
-// coef[b, 0, c] = a_c, coef[b, 1, c] = b_c.
-__global__ void __launch_bounds__(kThreads)
-    gn_finalize_kernel(const float* __restrict__ psum,
-                       const float* __restrict__ psq,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ bias,
-                       float* __restrict__ coef, int S, int C, int G,
-                       float count, float eps) {
-  extern __shared__ float sm[];  // (2C + 2G) floats
-  float* csum = sm;
-  float* csq = sm + C;
-  float* gmean = sm + 2 * C;
-  float* ginv = gmean + G;
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float a = 0.f, a2 = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const size_t o = ((size_t)b * S + s) * C + c;
-      a += psum[o];
-      a2 += psq[o];
-    }
-    csum[c] = a;
-    csq[c] = a2;
-  }
-  __syncthreads();
-  const int cg = C / G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float a = 0.f, a2 = 0.f;
-    for (int k = 0; k < cg; ++k) {
-      a += csum[g * cg + k];
-      a2 += csq[g * cg + k];
-    }
-    const float mean = a / count;
-    const float var = fmaxf(a2 / count - mean * mean, 0.f);
-    gmean[g] = mean;
-    ginv[g] = rsqrtf(var + eps);
-  }
-  __syncthreads();
-  float* ab = coef + (size_t)b * 2 * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int g = c / cg;
-    const float a = ginv[g] * scale[c];
-    ab[c] = a;
-    ab[C + c] = bias[c] - gmean[g] * a;
-  }
-}
-
-// y = x * a_c + b_c (or its GLU) over every 16-byte output vector.
-template <typename T, int V, bool GLU>
-__global__ void __launch_bounds__(kThreads)
-    gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
-                    const float* __restrict__ coef, long long total_vec,
-                    int N, int C) {
-  const int c_out = GLU ? C / 2 : C;
-  const int nvec_out = c_out / V;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total_vec; i += stride) {
-    const int c0 = (int)(i % nvec_out) * V;
-    const long long row = i / nvec_out;  // b * N + n
-    const int b = (int)(row / N);
-    const float* a_c = coef + (size_t)b * 2 * C;
-    const float* b_c = a_c + C;
-    const T* xr = x + row * C;
-    float e[V], out[V];
-    load_vec<T, V>(xr + c0, e);
-    if (!GLU) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) out[j] = e[j] * a_c[c0 + j] + b_c[c0 + j];
-    } else {
-      float g[V];
-      load_vec<T, V>(xr + c_out + c0, g);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int ca = c0 + j, cgate = c_out + c0 + j;
-        const float av = round_to<T>(e[j] * a_c[ca] + b_c[ca]);
-        const float gv = round_to<T>(g[j] * a_c[cgate] + b_c[cgate]);
-        const float sig = round_to<T>(1.f / (1.f + expf(-gv)));
-        out[j] = av * sig;  // rounded by the store
-      }
-    }
-    store_vec<T, V>(y + row * c_out + c0, out);
-  }
+  if (cs > 1) cluster_wait();  // no CTA leaves while others read it
 }
 
 template <typename T, int V>
-cudaError_t launch(const void* x, void* y, const float* scale,
-                   const float* bias, float* psum, float* psq, float* coef,
-                   int B, int N, int C, int G, int S, float eps, int use_glu,
-                   int apply_blocks, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const int rows_per_split = (N + S - 1) / S;
-  gn_stats_kernel<T, V>
-      <<<dim3(S, B), kThreads, 2 * kThreads * V * sizeof(float), stream>>>(
-          xt, psum, psq, N, C, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const float count = (float)N * (float)(C / G);
-  gn_finalize_kernel<<<B, kThreads, (2 * C + 2 * G) * sizeof(float),
-                       stream>>>(psum, psq, scale, bias, coef, S, C, G, count,
-                                 eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long total_vec =
-      (long long)B * N * (use_glu ? C / 2 : C) / V;
-  if (use_glu)
-    gn_apply_kernel<T, V, true><<<apply_blocks, kThreads, 0, stream>>>(
-        xt, yt, coef, total_vec, N, C);
-  else
-    gn_apply_kernel<T, V, false><<<apply_blocks, kThreads, 0, stream>>>(
-        xt, yt, coef, total_vec, N, C);
-  return cudaGetLastError();
+const void* by_glu(int use_glu) {
+  return use_glu ? (const void*)gn_fused_kernel<T, V, true>
+                 : (const void*)gn_fused_kernel<T, V, false>;
 }
 
-template <typename T>
-cudaError_t dispatch_vec(const void* x, void* y, const float* scale,
-                         const float* bias, float* psum, float* psq,
-                         float* coef, int B, int N, int C, int G, int S,
-                         float eps, int use_glu, int apply_blocks,
-                         cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  // 16-byte loads need every row start, and with GLU the gate half's start,
-  // on a 16-byte boundary
-  const bool vec_ok = C % kVec == 0 && (!use_glu || (C / 2) % kVec == 0);
-  if (vec_ok)
-    return launch<T, kVec>(x, y, scale, bias, psum, psq, coef, B, N, C, G, S,
-                           eps, use_glu, apply_blocks, stream);
-  return launch<T, 1>(x, y, scale, bias, psum, psq, coef, B, N, C, G, S, eps,
-                      use_glu, apply_blocks, stream);
+// The kernel instance for (dtype, vector width, GLU), or null.
+const void* kernel_for(int dtype, int vec, int use_glu) {
+  if (dtype == 0 && vec == 4) return by_glu<float, 4>(use_glu);
+  if (dtype == 0 && vec == 1) return by_glu<float, 1>(use_glu);
+  if (dtype == 1 && vec == 8) return by_glu<__nv_bfloat16, 8>(use_glu);
+  if (dtype == 1 && vec == 1) return by_glu<__nv_bfloat16, 1>(use_glu);
+  return nullptr;
+}
+
+cudaLaunchConfig_t launch_config(int grid_x, int grid_y, int cluster,
+                                 int smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, grid_y, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. x (B, N, C) contiguous; y (B, N, C) or
-// (B, N, C/2) with use_glu; scale/bias (C,) fp32; psum/psq (B, S, C) fp32
-// and coef (B, 2, C) fp32 scratch. Returns cudaGetLastError() (0 = launched).
+// Sets every kernel instance's function attributes on the current device:
+// the opt-in shared memory, clusters of 16 (non-portable), and the largest
+// shared-memory carveout. Call once per device before the first launch.
+int objgan_group_norm_setup() {
+  const int vecs[] = {1, 4, 8};
+  for (int i = 0; i < 12; ++i) {  // dtype x vec x GLU
+    const void* k = kernel_for(i % 2, vecs[i / 2 % 3], i / 6);
+    if (!k) continue;
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+  }
+  return 0;
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes each the current
+// device can hold at once, into *out (0: it cannot launch the plan).
+int objgan_group_norm_max_clusters(int dtype, int vec, int use_glu,
+                                   int cluster, int smem, int* out) {
+  const void* k = kernel_for(dtype, vec, use_glu);
+  if (!k || cluster < 1 || cluster > kMaxCluster) return 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cluster, 1, cluster, smem, 0, &attr);
+  cudaError_t err = cudaOccupancyMaxActiveClusters(out, k, &cfg);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+// dtype: 0 = float32, 1 = bfloat16; vec: 16 / itemsize or 1. x (B, N, C)
+// contiguous; y (B, N, C) or (B, N, C/2) with use_glu; scale/bias (C,) fp32.
+// Launches grid (cluster, B) in clusters of `cluster`; CTA r owns rows
+// [r * rows, (r + 1) * rows) of its batch element and keeps the first
+// res_rows of them in shared memory, copied by
+// bulk copies if `bulk` (else by the threads); the rest stream through a
+// ring of kStages slots of ring_rows rows (0: no ring, 16-byte loads).
+// `smem` bytes of dynamic shared memory. Returns 0 when launched,
+// cudaErrorInvalidValue (1) for a plan this file does not take, else the
+// launch's error.
 int objgan_group_norm(const void* x, void* y, const void* scale,
-                      const void* bias, void* psum, void* psq, void* coef,
-                      int dtype, int B, int N, int C, int G, int S, float eps,
-                      int use_glu, int apply_blocks, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  float* ps = static_cast<float*>(psum);
-  float* pq = static_cast<float*>(psq);
-  float* cf = static_cast<float*>(coef);
-  if (dtype == 0)
-    return (int)dispatch_vec<float>(x, y, sc, bi, ps, pq, cf, B, N, C, G, S,
-                                    eps, use_glu, apply_blocks, st);
-  if (dtype == 1)
-    return (int)dispatch_vec<__nv_bfloat16>(x, y, sc, bi, ps, pq, cf, B, N, C,
-                                            G, S, eps, use_glu, apply_blocks,
-                                            st);
-  return (int)cudaErrorInvalidValue;
+                      const void* bias, int dtype, int vec, int B, int N,
+                      int C, int G, int cluster, int rows, int res_rows,
+                      int ring_rows, int bulk, int smem, float eps,
+                      int use_glu, void* stream) {
+  const void* k = kernel_for(dtype, vec, use_glu);
+  const long long row = (long long)C * (dtype == 0 ? 4 : 2);
+  const bool ok =
+      k && B >= 1 && B <= 65535 && N >= 1 && C >= 1 && G >= 1 && C % G == 0 &&
+      (!use_glu || C % 2 == 0) && C % vec == 0 &&
+      (!use_glu || (C / 2) % vec == 0) && cluster >= 1 &&
+      cluster <= kMaxCluster && rows >= 1 &&
+      (long long)rows * cluster >= N && res_rows >= 0 && res_rows <= rows &&
+      ring_rows >= 0 && (ring_rows == 0 || (vec > 1 && C / vec <= 256)) &&
+      smem <= kMaxSmem &&
+      tile_offset(C, vec) + ((long long)kStages * ring_rows + res_rows) * row <=
+          smem &&
+      (vec == 1 || (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  Params p{x,    y,        static_cast<const float*>(scale),
+           static_cast<const float*>(bias),
+           N,    C,        G,
+           rows, res_rows, ring_rows,
+           bulk, eps};
+  void* args[] = {&p};
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(
+      cluster, B, cluster, smem, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelExC(&cfg, k, args);
+  if (err != cudaSuccess) cudaGetLastError();  // not sticky: clear it
+  return (int)err;
 }
 
 }  // extern "C"

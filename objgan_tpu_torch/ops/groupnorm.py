@@ -6,6 +6,11 @@ launches the hand-written kernel ``csrc/groupnorm.cu`` (which replaces the
 JAX package's Pallas kernel ``objgan_tpu/ops/groupnorm.py::_kernel``) or
 raises. There is no fallback from the kernel to the twin.
 
+One call is one kernel launch. ``_plan`` (pure Python, tested on the CPU)
+picks how: a thread-block cluster per batch element whose CTAs keep their
+rows of x in shared memory where they fit (read once from device memory),
+or stream the rest and read it a second time (see csrc/groupnorm.cu).
+
 On the card the kernel runs inside ``GroupNormFunction``, a
 ``torch.autograd.Function`` whose backward is the VJP of the twin with the
 statistics recomputed from the saved ``x, scale, bias``, as the JAX
@@ -19,6 +24,7 @@ a cast back to the input dtype, then optionally GLU over the channel halves.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -28,12 +34,37 @@ from objgan_tpu_torch.ops import _build
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The same numbers as csrc/groupnorm.cu's kThreads, kChunks, kStages and
+# kMaxCluster.
 _THREADS = 256
-# stats blocks per SM the split count aims for (B * S blocks in all)
-_STATS_BLOCKS_PER_SM = 4
-# smallest row range worth a stats block of its own
-_MIN_ROWS_PER_SPLIT = 64
-_MAX_FINALIZE_SMEM = 48 * 1024
+_CHUNKS = 8
+_STAGES = 4
+_MAX_CLUSTER = 16
+# The plan keeps a CTA within this, so that two CTAs share an SM: 228 KB of
+# shared memory per SM, less 1 KB the system keeps per CTA, halved.
+_HALF_SMEM = 115712
+# A small slice takes a cluster of up to _SPREAD CTAs while each keeps at
+# least _MIN_CTA_BYTES of it: more SMs per batch element, at a cluster
+# barrier whose skew outweighs them beyond that.
+_SPREAD = 4
+_MIN_CTA_BYTES = 32 * 1024
+# Bytes of one ring slot of the streaming regime; the ring is used once a
+# CTA streams more than _RING_MIN_BYTES (below, 16-byte loads beside more
+# resident rows are faster).
+_RING_SLOT_BYTES = 16 * 1024
+_RING_MIN_BYTES = 96 * 1024
+# Resident rows of fewer bytes than this are copied by the threads: a bulk
+# copy's set-up costs more than it saves there.
+_MIN_BULK_BYTES = 32 * 1024
+# In a one-wave plan a CTA streams at most this many bytes of x; a larger
+# share is slower than resident CTAs in several waves (measured at (160,
+# 4096, 64) fp32).
+_MAX_STREAM_BYTES = 768 * 1024
+# Cluster sizes for one wave: on an H100 SXM 16 clusters of 12 are
+# co-resident at two CTAs per SM, but only 14 of 14 or 16 (GPCs of 12 to 18
+# SMs). Several waves take powers of two up to 16.
+_WAVE_SIZES = (1, 2, 4, 8, 12)
+_SIZES = (1, 2, 4, 8, _MAX_CLUSTER)
 
 
 def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -55,34 +86,176 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
-def _entry():
-    """The kernel's C entry point, built and typed at first use."""
-    fn = _build.load("groupnorm").objgan_group_norm
+class Plan(NamedTuple):
+    """How one K1 call is launched: grid (cluster, B) in clusters of
+    ``cluster`` CTAs; CTA r owns rows [r * rows, (r + 1) * rows) of its batch
+    element and keeps the first ``res_rows`` in shared memory (copied by
+    bulk copies if ``bulk``, else by the threads); the rest stream through a
+    ring of _STAGES slots of ``ring_rows`` rows (0: 16-byte loads);
+    ``smem`` bytes of dynamic shared memory; ``vec`` elements per vector."""
+    regime: str   # "resident": x[b] fits in the cluster; else "streaming"
+    cluster: int
+    rows: int
+    res_rows: int
+    ring_rows: int
+    bulk: bool
+    smem: int
+    vec: int
+    grid: Tuple[int, int]
+
+
+def _fixed_smem(c: int, vec: int) -> int:
+    """Shared memory before the ring and the row tile: mbarriers, a scratch
+    of _THREADS * vec floats and three 2C float arrays (csrc/groupnorm.cu's
+    tile_offset)."""
+    raw = 8 * (_CHUNKS + _STAGES) + 4 * _THREADS * vec + 24 * c
+    return -(-raw // 128) * 128
+
+
+def _vec_width(c: int, itemsize: int, use_glu: bool) -> int:
+    """16-byte vectors when every row (and the GLU gate half) starts on a
+    16-byte boundary, else 1."""
+    v = 16 // itemsize
+    return v if c % v == 0 and (not use_glu or (c // 2) % v == 0) else 1
+
+
+def _slots(sms: int) -> int:
+    """CTAs the card runs at once at two per SM, as clusters: count 7/8 of
+    them, for the SMs that whole clusters leave free in a GPC."""
+    return 2 * sms * 7 // 8
+
+
+def _plan(b: int, n: int, c: int, itemsize: int, use_glu: bool, sms: int,
+          aligned: bool = True) -> Plan:
+    """The launch plan of K1 for x (b, n, c) of ``itemsize`` bytes on a card
+    with ``sms`` SMs; ``aligned`` says x starts on a 16-byte boundary. A CTA
+    takes at most _HALF_SMEM bytes of shared memory, so that two share an
+    SM.
+
+    The clusters of one wave (_WAVE_SIZES with b * size <= _slots(sms)) run
+    every batch element at once. The plan is resident at the smallest such
+    cluster that holds the slice x[b] (spread up to _SPREAD CTAs while each
+    keeps _MIN_CTA_BYTES). If none holds it, it streams at the largest such
+    cluster while a CTA's share is at most _MAX_STREAM_BYTES; else it takes
+    more waves: resident at the smallest power of two that holds the slice,
+    or streaming at 16."""
+    vec = _vec_width(c, itemsize, use_glu) if aligned else 1
+    row = c * itemsize
+    fixed = _fixed_smem(c, vec)
+    if fixed + row > _HALF_SMEM:
+        raise ValueError(f"C={c} is too wide for K1's shared memory")
+    cap = (_HALF_SMEM - fixed) // row  # rows one CTA can hold
+
+    def rows_at(cs):
+        return -(-n // cs)
+
+    wave = [cs for cs in _WAVE_SIZES if b * cs <= _slots(sms)] or [1]
+    fit = [cs for cs in wave if rows_at(cs) <= cap]
+    if fit:
+        cluster = max(cs for cs in wave if cs == fit[0] or (
+            fit[0] < cs <= _SPREAD and rows_at(cs) * row >= _MIN_CTA_BYTES))
+    elif rows_at(wave[-1]) * row <= _MAX_STREAM_BYTES:
+        cluster = wave[-1]
+    else:
+        cluster = next((cs for cs in _SIZES if rows_at(cs) <= cap),
+                       _MAX_CLUSTER)
+    # no CTA without rows
+    while cluster > 1 and (cluster - 1) * rows_at(cluster) >= n:
+        cluster = max(cs for cs in _WAVE_SIZES if cs < cluster)
+    rows = rows_at(cluster)
+    ring_rows = 0
+    if ((rows - cap) * row > _RING_MIN_BYTES and vec > 1
+            and c // vec <= _THREADS):
+        ring_rows = max(1, _RING_SLOT_BYTES // row)
+        if fixed + (_STAGES * ring_rows + 1) * row > _HALF_SMEM:
+            ring_rows = 0
+    res_rows = min(rows, (_HALF_SMEM - fixed - _STAGES * ring_rows * row)
+                   // row)
+    data = (_STAGES * ring_rows + res_rows) * row
+    return Plan("resident" if res_rows == rows else "streaming", cluster,
+                rows, res_rows, ring_rows,
+                vec > 1 and res_rows * row > _MIN_BULK_BYTES, fixed + data,
+                vec, (cluster, b))
+
+
+def plan_for(x3: torch.Tensor, use_glu: bool) -> Plan:
+    """The plan ``group_norm_cuda`` launches for x3 (B, N, C) on its card."""
+    b, n, c = x3.shape
+    return _plan(b, n, c, x3.element_size(), use_glu, _sm_count(x3.device),
+                 x3.data_ptr() % 16 == 0)
+
+
+# ctypes types of csrc/groupnorm.cu's objgan_group_norm: x, y, scale, bias;
+# dtype, vec, B, N, C, G, cluster, rows, res_rows, ring_rows, bulk, smem;
+# eps, use_glu; stream
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 12
+             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def _lib():
+    """The kernel library, built, typed and its function attributes set on
+    the current device at first use."""
+    lib = _build.load("groupnorm")
+    fn = lib.objgan_group_norm
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-    return fn
+        fn.argtypes = list(_ARGTYPES)
+        lib.objgan_group_norm_setup.restype = ctypes.c_int
+        lib.objgan_group_norm_setup.argtypes = []
+        mc = lib.objgan_group_norm_max_clusters
+        mc.restype = ctypes.c_int
+        mc.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
 
 
 _sm_counts: dict = {}
+_ready_devices: set = set()
+_schedulable: dict = {}
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
 
 
 def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    idx = _device_index(device)
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _sm_counts[idx]
 
 
+def _check_plan(lib, idx: int, dtype_code: int, plan: Plan,
+                use_glu: bool) -> None:
+    """Sets the function attributes on device ``idx`` once, and raises
+    unless the card can hold one cluster of the plan (asked once per plan;
+    both happen at a shape's first call, outside any CUDA-graph capture)."""
+    key = (idx, dtype_code, plan.vec, use_glu, plan.cluster, plan.smem)
+    if key in _schedulable:
+        return
+    with torch.cuda.device(idx):
+        if idx not in _ready_devices:
+            err = lib.objgan_group_norm_setup()
+            if err != 0:
+                raise RuntimeError(f"groupnorm kernel attributes refused: "
+                                   f"cudaError {err}")
+            _ready_devices.add(idx)
+        out = ctypes.c_int(0)
+        err = lib.objgan_group_norm_max_clusters(
+            dtype_code, plan.vec, int(use_glu), plan.cluster, plan.smem,
+            ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"the card cannot run K1's plan {plan}: cudaError "
+                           f"{err}, {out.value} clusters fit")
+    _schedulable[key] = out.value
+
+
 def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int, eps: float,
-                    use_glu: bool) -> torch.Tensor:
-    """Launch K1 on x3 (B, N, C), contiguous, bf16 or fp32, on a CUDA device.
-    Returns (B, N, C) or (B, N, C // 2) with GLU, in x3's dtype."""
+                    num_groups: int, eps: float, use_glu: bool) -> torch.Tensor:
+    """Launch K1 on x3 (B, N, C), contiguous, bf16 or fp32, on a CUDA device:
+    one kernel, launched by ``plan_for(x3, use_glu)``. Returns (B, N, C) or
+    (B, N, C // 2) with GLU, in x3's dtype."""
     global launches
     if x3.device.type != "cuda":
         raise ValueError(f"group_norm_cuda needs a CUDA tensor, got "
@@ -98,31 +271,24 @@ def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if c % num_groups or (use_glu and c % 2):
         raise ValueError(f"C={c} must be divisible by num_groups="
                          f"{num_groups} (and by 2 with GLU)")
-    if (2 * c + 2 * num_groups) * 4 > _MAX_FINALIZE_SMEM:
-        raise ValueError(f"C={c} exceeds the finalize pass's shared memory")
+    if not 1 <= b <= 65535 or n < 1:
+        raise ValueError(f"group_norm_cuda takes 1 <= B <= 65535 and N >= 1, "
+                         f"got {tuple(x3.shape)}")
     for name, p in (("scale", scale), ("bias", bias)):
         if (p.device != x3.device or p.dtype != torch.float32
                 or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous fp32 ({c},) tensor "
                              f"on {x3.device}")
-    sms = _sm_count(x3.device)
-    # stats row splits: enough (b, split) blocks to fill every SM
-    s = max(1, min(-(-_STATS_BLOCKS_PER_SM * sms // b),
-                   -(-n // _MIN_ROWS_PER_SPLIT)))
-    c_out = c // 2 if use_glu else c
-    y = torch.empty((b, n, c_out), dtype=x3.dtype, device=x3.device)
-    # fp32 scratch: partial sums (B, S, C), partial sums of squares
-    # (B, S, C), per-channel affine (B, 2, C)
-    scratch = torch.empty(b * (2 * s + 2) * c, dtype=torch.float32,
-                          device=x3.device)
-    part = b * s * c
-    apply_blocks = max(1, min(-(-b * n * c_out // _THREADS), 16 * sms))
-    ptr, f32 = scratch.data_ptr(), 4
-    err = _entry()(
+    plan = plan_for(x3, use_glu)
+    lib, idx, code = _lib(), _device_index(x3.device), _DTYPE_CODE[x3.dtype]
+    _check_plan(lib, idx, code, plan, use_glu)
+    y = torch.empty((b, n, c // 2 if use_glu else c), dtype=x3.dtype,
+                    device=x3.device)
+    err = lib.objgan_group_norm(
         x3.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        ptr, ptr + part * f32, ptr + 2 * part * f32,
-        _DTYPE_CODE[x3.dtype], b, n, c, num_groups, s, float(eps),
-        int(use_glu), apply_blocks,
+        code, plan.vec, b, n, c, num_groups, plan.cluster, plan.rows,
+        plan.res_rows, plan.ring_rows, int(plan.bulk), plan.smem, float(eps),
+        int(use_glu),
         torch.cuda.current_stream(x3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: cudaError {err}")

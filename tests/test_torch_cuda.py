@@ -57,29 +57,100 @@ SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("b,n,c,dtype,use_glu", SHAPES)
-def test_k1_matches_twin(dev, b, n, c, dtype, use_glu):
-    x, scale, bias = _inputs(b, n, c, dtype, dev)
-    groups = 32 if c % 32 == 0 else 2 if c % 2 == 0 else 1
+def _groups(c):
+    return 32 if c % 32 == 0 else 2 if c % 2 == 0 else 1
+
+
+def _k1_matches_twin(x, scale, bias, use_glu):
+    groups = _groups(x.shape[-1])
     before = groupnorm.launches
     got = groupnorm.group_norm_cuda(x, scale, bias, groups, 1e-6, use_glu)
     torch.cuda.synchronize()
     assert groupnorm.launches == before + 1
     want = groupnorm.group_norm_reference(x, scale, bias, groups, 1e-6,
                                           use_glu)
-    assert got.dtype == dtype and got.shape == want.shape
+    assert got.dtype == x.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
+    if x.dtype == torch.float32:
         assert float(err.max()) <= 1e-4
     else:
         assert not bool((err > 3e-2 + 2e-2 * want.float().abs()).any())
 
 
-def test_k1_is_bit_reproducible(dev):
-    x, scale, bias = _inputs(16, 16384, 64, torch.bfloat16, dev, seed=3)
-    a = groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)
-    b = groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)
+@pytest.mark.parametrize("b,n,c,dtype,use_glu", SHAPES)
+def test_k1_matches_twin(dev, b, n, c, dtype, use_glu):
+    x, scale, bias = _inputs(b, n, c, dtype, dev)
+    _k1_matches_twin(x, scale, bias, use_glu)
+
+
+# (B, N, C, dtype, use_glu, regime, cluster): just below and just above the
+# resident/streaming threshold (ops/groupnorm.py::_plan) for the bf16
+# vector, fp32 vector and fp32 scalar paths, each cluster size the plan
+# picks for (2, N, 256) bf16, 16 over several waves, and a ring
+PLAN_SHAPES = [
+    (2, 9924, 64, torch.bfloat16, True, "resident", 12),
+    (2, 9925, 64, torch.bfloat16, True, "streaming", 12),
+    (2, 3408, 96, torch.float32, False, "resident", 12),
+    (2, 3409, 96, torch.float32, False, "streaming", 12),
+    (1, 57216, 6, torch.float32, False, "resident", 12),
+    (1, 57217, 6, torch.float32, False, "streaming", 12),
+    (2, 64, 256, torch.bfloat16, False, "resident", 1),
+    (2, 128, 256, torch.bfloat16, False, "resident", 2),
+    (2, 512, 256, torch.bfloat16, False, "resident", 4),
+    (2, 1024, 256, torch.bfloat16, False, "resident", 8),
+    (2, 2048, 256, torch.bfloat16, False, "resident", 12),
+    (160, 4096, 64, torch.float32, False, "resident", 16),
+    (2, 65536, 64, torch.bfloat16, True, "streaming", 12),  # with a ring
+]
+
+
+@pytest.mark.parametrize("b,n,c,dtype,use_glu,regime,cluster", PLAN_SHAPES)
+def test_k1_plans_match_twin(dev, b, n, c, dtype, use_glu, regime, cluster):
+    x, scale, bias = _inputs(b, n, c, dtype, dev, seed=1)
+    plan = groupnorm.plan_for(x, use_glu)
+    assert (plan.regime, plan.cluster) == (regime, cluster)
+    _k1_matches_twin(x, scale, bias, use_glu)
+
+
+@pytest.mark.parametrize("b,n,c,use_glu", [
+    (16, 4096, 96, False),    # resident, cluster 8
+    (16, 16384, 96, False),   # streaming, cluster 12
+    (16, 65536, 64, True),    # streaming through the ring, cluster 12
+])
+def test_k1_is_bit_reproducible(dev, b, n, c, use_glu):
+    x, scale, bias = _inputs(b, n, c, torch.bfloat16, dev, seed=3)
+    a = groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, use_glu)
+    b = groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, use_glu)
     assert torch.equal(a, b)
+
+
+def test_k1_is_one_kernel_per_call(dev):
+    """A CUDA graph captured around one call holds one node, a kernel
+    (counted with libcuda's cuGraphGetNodes and cuGraphNodeGetType)."""
+    import ctypes
+
+    x, scale, bias = _inputs(16, 65536, 64, torch.bfloat16, dev, seed=4)
+    groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)  # first use
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                              ctypes.byref(count)) == 0
+    assert count.value == 1
+    node = (ctypes.c_void_p * 1)()
+    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), node,
+                              ctypes.byref(count)) == 0
+    kind = ctypes.c_int(-1)
+    assert cu.cuGraphNodeGetType(node[0], ctypes.byref(kind)) == 0
+    assert kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
 
 
 def test_k1_rejects_bad_input(dev):
