@@ -39,19 +39,26 @@ ROI 7), and checks every hand-written kernel on them:
                 discriminators, the fp32 image encoder), checked as in
                 phase 3;
 9. roi          every K2/K3 call of that step replayed through the
-                kernels, their twins and, where torchvision is installed,
-                ``torchvision.ops.roi_align``;
+                kernels (twice, held bitwise equal), their twins and,
+                where torchvision is installed, ``torchvision.ops.
+                roi_align``, with the recorded boxes and with padded boxes
+                zeroed (K3 with the cotangent scaled to unit RMS); per call
+                the launch plan, the kernels that one call launches (one
+                kernel node in a CUDA graph) and, modelled from the plan
+                on the host, the bytes its loads would request beside the
+                unique bytes the bound counts;
 10. small_train one tiny fp32 train step on the GPU (K1 Function, K2, K3)
                 against the same weights, batch and noise on the CPU
                 (twins): metrics and every parameter's gradient.
 
 Times are device time from CUDA events around a CUDA-graph replay of one
-call, median of 20, unless a line says otherwise. K1 and ``F.group_norm``
-are also timed with ten calls of a shape in one graph (a tenth of the
-replay, so the graph launch's own cost is spread over ten calls): the
-JSON keys ``ms_10_per_graph`` and ``library_ms_10_per_graph``. The bounds count
-each input read once and each output written once at 3.35 TB/s, or the
-arithmetic at 67 TFLOP/s fp32, whichever is larger (H100 SXM data sheet).
+call, median of 20, unless a line says otherwise. K1, K2, K3 and
+``F.group_norm`` are also timed with ten calls of a shape in one graph (a
+tenth of the replay, so the graph launch's own cost is spread over ten
+calls): the JSON keys ``ms_10_per_graph`` and ``library_ms_10_per_graph``.
+The bounds count each input read once and each output written once at
+3.35 TB/s, or the arithmetic at 67 TFLOP/s fp32, whichever is larger
+(H100 SXM data sheet).
 Any failure exits non-zero, and so does a host without a CUDA device,
 before anything is printed to stdout. The last lines are the kernel
 summary JSON, the card's ``name, power.limit`` from nvidia-smi, and
@@ -695,25 +702,31 @@ def phase_train_profile(cfg, trainer):
     wall_ms, busy_ms, spans = _device_profile(step)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     groups = collections.defaultdict(float)
+    roi = {"K2": [0.0, 0], "K3": [0.0, 0]}
     for a, b, name in spans:
         ms = (b - a) / 1000.0
         by_name[name][0] += ms
         by_name[name][1] += 1
         group = ("K1 GroupNorm" if re.search(
                      "gn_fused_kernel", name) else
-                 "K2/K3 ROI-align" if re.search("roi_(fwd|bwd)_kernel",
-                                                name) else
+                 "K2 ROI-align fwd" if re.search("roi_fwd_kernel", name) else
+                 "K3 ROI-align bwd" if re.search("roi_bwd_kernel", name) else
                  "conv / matmul" if re.search(
                      "conv|gemm|xmma|cudnn|cutlass|wgrad|dgrad|fprop|sm90",
                      name, re.I) else
                  "other (elementwise, reductions, copies)")
         groups[group] += ms
+        if group.startswith(("K2", "K3")):
+            roi[group[:2]][0] += ms
+            roi[group[:2]][1] += 1
     log("profile", f"one train step under torch.profiler: wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms (share "
         f"{busy_ms / wall_ms:.3f}), {len(spans)} device activities")
     log("profile", "device ms by kernel group: " + ", ".join(
         f"{k} {v:.2f}" for k, v in sorted(groups.items(),
                                           key=lambda kv: -kv[1])))
+    log("profile", "ROI-align in the step: " + ", ".join(
+        f"{k} {v[0]:.4f} ms over {v[1]} launches" for k, v in roi.items()))
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:10]:
         log("profile", f"  {ms:8.3f} ms x{count:4d}  {name[:90]}")
@@ -757,6 +770,43 @@ def _roi_work(boxes, f_shape, out_size, q):
     touched = (rows[..., :, None] & cols[..., None, :]).any(1).sum()
     terms = ((a_y != 0).sum((-1, -2)) * (a_x != 0).sum((-1, -2))).sum()
     return int(touched), int(terms)
+
+
+def _roi_requested(name, boxes, f_shape, out_size, q, itemsize):
+    """A model, not a measurement: the bytes that one call's loads would
+    request from L2 or device memory (features for K2, g for K3) if they
+    follow the launch plan, counted on the host from this call's boxes. K2
+    copies each box's footprint once, every channel: modelled as the span
+    of pixels its bins weigh along each axis. K3 copies, per block and per
+    box that meets it, the box's rows of g that meet the block's band, R
+    vectors of the tile's channels each."""
+    import torch
+
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    b, h, w, c = f_shape
+    a_y, a_x = ra._pool_matrices(boxes, h, w, out_size, q)
+    nzy, nzx = a_y != 0, a_x != 0  # (B, O, R, H | W)
+    if name == "K2":
+        pixels = 1
+        for nz in (nzy.any(-2), nzx.any(-2)):  # (B, O, H | W)
+            n = nz.shape[-1]
+            first = nz.int().argmax(-1)
+            last = n - 1 - nz.flip(-1).int().argmax(-1)
+            pixels = pixels * torch.where(nz.any(-1), last - first + 1, 0)
+        return int(pixels.sum()) * c * itemsize
+    plan = ra.bwd_plan(b, h, w, c, boxes.shape[1], out_size, q, itemsize)
+    i = torch.arange(out_size, device=boxes.device)[:, None]
+    rows = 0
+    for y0 in range(0, h, plan.band):
+        meet = nzy[..., y0:y0 + plan.band].any(-1, keepdim=True)  # (B,O,R,1)
+        first = torch.where(meet, i, out_size).amin((-1, -2))
+        last = torch.where(meet, i + 1, 0).amax((-1, -2))
+        n_rows = (last - first).clamp(min=0)  # (B, O)
+        for x0 in range(0, w, plan.cols):
+            hit = nzx[..., x0:x0 + plan.cols].any((-1, -2))
+            rows += int((n_rows * hit).sum())
+    return rows * out_size * c * itemsize
 
 
 def _record_train_step(cfg, trainer):
@@ -816,10 +866,12 @@ def phase_roi(fwd, bwd, pad):
         tv_ops = None
     res = {}
     for name, calls in (("K2", fwd), ("K3", bwd)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        tot = {"ms": 0.0, "ms_10_per_graph": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0,
                "library_ms": None if (tv_ops is None or name == "K3") else
                0.0}
         max_err, bound_by = 0.0, "bytes"
+        requested_mb = unique_mb = 0.0  # the model's, for the log line only
         for call in calls:
             if name == "K2":
                 f, boxes, r, q = call
@@ -833,6 +885,10 @@ def phase_roi(fwd, bwd, pad):
             else:
                 boxes, g, f_shape, r, q = call
                 dt = g.dtype
+                # the step's cotangent is ~1e-4, far below the bf16 atol:
+                # replay it scaled to unit RMS so the tolerance is small
+                # against what is compared
+                g = (g.float() / g.float().square().mean().sqrt()).to(dt)
 
                 def kernel(bx, g=g, f_shape=f_shape, r=r, q=q):
                     return ra.roi_align_backward_cuda(bx, g, f_shape, r, q)
@@ -860,7 +916,16 @@ def phase_roi(fwd, bwd, pad):
                     top_left.expand_as(out).masked_select(
                         pad[..., None, None, None]))),
                     "K2: a zero box does not return the top-left pixel")
+            check(bool(torch.equal(kernel(boxes), kernel(boxes))),
+                  f"{name} is not bit-reproducible")
+            kernels, nodes = graph_kernels(lambda: kernel(boxes))
+            check(kernels == 1 and nodes == 1, f"one {name} call captured "
+                  f"{kernels} kernels in {nodes} graph nodes")
             k_ms, _ = time_ms(lambda: kernel(boxes))
+            k_ten, _ = time_ms(lambda: kernel(boxes), calls=10)
+            # real batches give padded objects zero boxes, all on pixel (0, 0)
+            zb = zeroed(boxes)
+            k_zero, _ = time_ms(lambda: kernel(zb), calls=10)
             p_ms, _ = time_ms(lambda: twin(boxes))
             itemsize = torch.tensor([], dtype=dt).element_size()
             touched, terms = _roi_work(boxes, f_shape, r, q)
@@ -871,7 +936,15 @@ def phase_roi(fwd, bwd, pad):
             nbytes = (touched * c * itemsize + out_bytes if name == "K2"
                       else out_bytes + full_bytes) + boxes.numel() * 4
             b_ms, bound_by = bound_ms(nbytes, 2 * terms * c)
+            # what the loads would request by the plan's model, beside the
+            # unique input bytes that the bound counts (features touched for
+            # K2, all of g for K3)
+            requested = _roi_requested(name, boxes, f_shape, r, q, itemsize)
+            unique = (touched * c * itemsize if name == "K2" else out_bytes)
             tot["ms"] += k_ms
+            tot["ms_10_per_graph"] += k_ten
+            requested_mb += requested / 1e6
+            unique_mb += unique / 1e6
             tot["plain_ms"] += p_ms
             tot["bound_ms"] += b_ms
             lib = ""
@@ -894,12 +967,21 @@ def phase_roi(fwd, bwd, pad):
                 tot["library_ms"] += l_ms
                 lib = (f", torchvision.ops.roi_align (fp32 NCHW input) "
                        f"{1000 * l_ms:.1f} us (max err vs twin {l_err:.3g})")
+            if name == "K2":
+                plan = ra.fwd_plan(*f_shape, o, r, q, itemsize)
+            else:
+                plan = ra.bwd_plan(*f_shape, o, r, q, itemsize)
             shape = tuple(f_shape) if name == "K2" else tuple(g.shape)
             log("roi", f"{name} {shape} {str(dt).replace('torch.', '')}: "
-                f"device {1000 * k_ms:.1f} us, bound {1000 * b_ms:.2f} us "
-                f"({bound_by}; {nbytes / 1e6:.2f} MB, {touched} of "
-                f"{b * f_shape[1] * f_shape[2]} pixels touched), twin "
-                f"{1000 * p_ms:.1f} us" + lib)
+                f"device {1000 * k_ms:.1f} us one per graph, "
+                f"{1000 * k_ten:.1f} us ten per graph ({1000 * k_zero:.1f} "
+                f"with padded boxes zeroed), bound "
+                f"{1000 * b_ms:.2f} us ({bound_by}; {nbytes / 1e6:.2f} MB, "
+                f"{touched} of {b * f_shape[1] * f_shape[2]} pixels "
+                f"touched), twin {1000 * p_ms:.1f} us | {plan} | loads "
+                f"request {requested / 1e6:.2f} MB (modelled from the plan) "
+                f"of {'features' if name == 'K2' else 'g'} against "
+                f"{unique / 1e6:.2f} MB unique" + lib)
         if name == "K2" and tv_ops is None:
             log("roi", "no library call: torchvision is not installed")
         if name == "K3":
@@ -908,15 +990,18 @@ def phase_roi(fwd, bwd, pad):
         tol = (f"bf16 atol {ROI_BF16_ATOL} rtol {ROI_BF16_RTOL}"
                if dt == torch.bfloat16 else f"fp32 atol {FP32_ATOL}")
         log("roi", f"{name}: {len(calls)} calls per step agree with the twin "
-            f"(recorded boxes and padded boxes zeroed), max err "
-            f"{max_err:.3g} ({tol}); per step: device {tot['ms']:.4f} ms, "
-            f"bound {tot['bound_ms']:.4f} ms, twin {tot['plain_ms']:.4f} ms"
+            f"(recorded boxes and padded boxes zeroed"
+            f"{'; g scaled to unit RMS' if name == 'K3' else ''}), are "
+            f"bit-reproducible "
+            f"and are one kernel node each in a CUDA graph; max err "
+            f"{max_err:.3g} ({tol}); per step: device {tot['ms']:.4f} ms "
+            f"one per graph, {tot['ms_10_per_graph']:.4f} ms ten per graph, "
+            f"bound {tot['bound_ms']:.4f} ms, twin {tot['plain_ms']:.4f} ms, "
+            f"loads request {requested_mb:.2f} MB (modelled from the plan) "
+            f"against {unique_mb:.2f} MB unique"
             + ("" if tot["library_ms"] is None
                else f", library {tot['library_ms']:.4f} ms"))
         res[name] = dict(tot, max_abs_err=max_err, bound_by=bound_by)
-    check(bool(torch.equal(ra.roi_align_backward_cuda(*bwd[0]),
-                           ra.roi_align_backward_cuda(*bwd[0]))),
-          "K3 is not bit-reproducible")
     return res
 
 
@@ -1034,6 +1119,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ms_10_per_graph": r["ms_10_per_graph"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

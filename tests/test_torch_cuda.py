@@ -124,17 +124,16 @@ def test_k1_is_bit_reproducible(dev, b, n, c, use_glu):
     assert torch.equal(a, b)
 
 
-def test_k1_is_one_kernel_per_call(dev):
-    """A CUDA graph captured around one call holds one node, a kernel
-    (counted with libcuda's cuGraphGetNodes and cuGraphNodeGetType)."""
+def _graph_nodes(fn):
+    """(kernel nodes, all nodes) of a CUDA graph captured around one call
+    of ``fn`` (libcuda's cuGraphGetNodes and cuGraphNodeGetType)."""
     import ctypes
 
-    x, scale, bias = _inputs(16, 65536, 64, torch.bfloat16, dev, seed=4)
-    groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)  # first use
+    fn()  # first use: build, attributes
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
-        groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, True)
+        fn()
     cu = ctypes.CDLL("libcuda.so.1")
     cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                    ctypes.POINTER(ctypes.c_size_t)]
@@ -143,14 +142,23 @@ def test_k1_is_one_kernel_per_call(dev):
     count = ctypes.c_size_t(0)
     assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), None,
                               ctypes.byref(count)) == 0
-    assert count.value == 1
-    node = (ctypes.c_void_p * 1)()
-    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), node,
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), nodes,
                               ctypes.byref(count)) == 0
-    kind = ctypes.c_int(-1)
-    assert cu.cuGraphNodeGetType(node[0], ctypes.byref(kind)) == 0
-    assert kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
     graph.reset()
+    return kinds.count(0), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def test_k1_is_one_kernel_per_call(dev):
+    """A CUDA graph captured around one call holds one node, a kernel."""
+    x, scale, bias = _inputs(16, 65536, 64, torch.bfloat16, dev, seed=4)
+    assert _graph_nodes(lambda: groupnorm.group_norm_cuda(
+        x, scale, bias, 32, 1e-6, True)) == (1, 1)
 
 
 def test_k1_rejects_bad_input(dev):
@@ -212,20 +220,23 @@ def _roi_close(got, want, dtype):
     return not bool((err > 1e-2 + 1e-2 * want.float().abs()).any())
 
 
-# (B, H, W, C, O, R, dtype): the train step's shape (16 images, 256 px /
-# 8, 10 objects, ROI 7), fp32 at that shape, a tiny one, and odd channel
-# counts that take the scalar (non-vector) path
+# (B, H, W, C, O, R, dtype, q): the train step's shape (16 images, 256 px
+# / 8, 10 objects, ROI 7), fp32 at that shape, a tiny one, odd channel
+# counts that take the scalar (non-vector) path, and other sampling ratios
+# (K2's instance for any q)
 ROI_SHAPES = [
-    (16, 32, 32, 256, 10, 7, torch.bfloat16),
-    (16, 32, 32, 256, 10, 7, torch.float32),
-    (2, 8, 8, 32, 3, 4, torch.float32),
-    (3, 9, 7, 5, 4, 3, torch.float32),
-    (2, 8, 8, 12, 3, 4, torch.bfloat16),
+    (16, 32, 32, 256, 10, 7, torch.bfloat16, 2),
+    (16, 32, 32, 256, 10, 7, torch.float32, 2),
+    (2, 8, 8, 32, 3, 4, torch.float32, 2),
+    (3, 9, 7, 5, 4, 3, torch.float32, 2),
+    (2, 8, 8, 12, 3, 4, torch.bfloat16, 2),
+    (3, 9, 7, 5, 4, 3, torch.float32, 3),
+    (2, 16, 16, 64, 5, 7, torch.bfloat16, 1),
 ]
 
 
-@pytest.mark.parametrize("b,h,w,c,o,r,dtype", ROI_SHAPES)
-def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype):
+@pytest.mark.parametrize("b,h,w,c,o,r,dtype,q", ROI_SHAPES)
+def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype, q):
     """K2 against ``roi_align_reference`` and K3 against
     ``roi_align_backward_reference``: fp32 atol 1e-4; bf16 atol 1e-2, rtol
     1e-2 (fp32 sums in another order, then one rounding to bf16)."""
@@ -233,16 +244,16 @@ def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype):
 
     f, boxes = _roi_inputs(b, h, w, c, o, dtype, dev)
     before = dict(ra.launches)
-    got = ra.roi_align_cuda(f, boxes, r, 2)
-    want = ra.roi_align_reference(f, boxes, r, 2)
+    got = ra.roi_align_cuda(f, boxes, r, q)
+    want = ra.roi_align_reference(f, boxes, r, q)
     assert got.dtype == dtype and got.shape == want.shape
     assert _roi_close(got, want, dtype)
     # the padded box returns the top-left pixel everywhere
     assert torch.equal(got[:, -1], f[:, None, None, 0, 0, :].expand_as(
         got[:, -1]))
     g = torch.randn(got.shape, device=dev).to(dtype)
-    dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, r, 2)
-    dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, r, 2)
+    dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, r, q)
+    dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, r, q)
     assert dfg.dtype == dtype and dfg.shape == f.shape
     assert _roi_close(dfg, dfw, dtype)
     assert ra.launches == {"fwd": before["fwd"] + 1,
@@ -258,17 +269,76 @@ def test_k3_is_bit_reproducible(dev):
     assert torch.equal(a, ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2))
 
 
-def test_k3_rejects_shared_memory_overflow(dev):
-    """O·R·W beyond K3's 48 KiB of shared memory: the C entry launches
-    nothing and the wrapper raises, counting no launch."""
+def test_k3_takes_a_wide_frame(dev):
+    """W = 256 at O = 10, which the previous K3 refused for its 48 KiB of
+    shared memory: it launches once and matches the twin."""
     from objgan_tpu_torch.ops import roi_align as ra
 
     f, boxes = _roi_inputs(1, 8, 256, 8, 10, torch.float32, dev, seed=7)
     g = torch.randn(1, 10, 7, 7, 8, device=dev)
     before = dict(ra.launches)
-    with pytest.raises(RuntimeError, match="cudaError 1"):
-        ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
-    assert ra.launches == before
+    got = ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
+    want = ra.roi_align_backward_reference(boxes, g, f.shape, torch.float32,
+                                           7, 2)
+    assert ra.launches == {"fwd": before["fwd"], "bwd": before["bwd"] + 1}
+    assert _roi_close(got, want, torch.float32)
+
+
+def _adversarial_boxes(dev):
+    """(2, 10, 4) boxes at the edges of K2's and K3's designs (as in
+    tests/test_torch_roi.py): image 0 the full frame, zero boxes, a
+    sub-pixel box, boxes ending on the frame, boxes reaching past it,
+    multiples of 1/32, a box wider than the frame; image 1 all ten objects
+    on one band of eight rows."""
+    first = [[0.0, 0.0, 1.0, 1.0],
+             [0.0, 0.0, 0.0, 0.0],
+             [0.5 + 0.1 / 32, 0.3 + 0.2 / 32, 0.2 / 32, 0.3 / 32],
+             [0.75, 0.5, 0.25, 0.5],
+             [0.8, -0.3, 0.6, 0.5],
+             [-0.2, 0.9, 0.4, 0.6],
+             [3 / 32, 5 / 32, 7 / 32, 9 / 32],
+             [0.25, 13 / 32, 17 / 32, 1 / 32],
+             [-0.5, -0.5, 2.0, 2.0],
+             [0.0, 0.0, 0.0, 0.0]]
+    band = [[0.08 * k, 8 / 32 + k / 320, 0.05 + 0.02 * k, 0.2]
+            for k in range(10)]
+    return torch.tensor([first, band], device=dev)
+
+
+@pytest.mark.parametrize("c,dtype", [(256, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (12, torch.bfloat16)])
+def test_k2_k3_match_twins_on_adversarial_boxes(dev, c, dtype):
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f = torch.randn(2, 32, 32, c, generator=gen, device=dev).to(dtype)
+    boxes = _adversarial_boxes(dev)
+    got = ra.roi_align_cuda(f, boxes, 7, 2)
+    assert _roi_close(got, ra.roi_align_reference(f, boxes, 7, 2), dtype)
+    assert torch.equal(got[0, 1], f[0, 0, 0].expand_as(got[0, 1]))
+    g = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
+    dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
+    dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, 7, 2)
+    assert _roi_close(dfg, dfw, dtype)
+
+
+def test_k2_is_bit_reproducible(dev):
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(16, 32, 32, 256, 10, torch.bfloat16, dev, seed=5)
+    a = ra.roi_align_cuda(f, boxes, 7, 2)
+    assert torch.equal(a, ra.roi_align_cuda(f, boxes, 7, 2))
+
+
+def test_k2_k3_are_one_kernel_per_call(dev):
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    f, boxes = _roi_inputs(16, 32, 32, 256, 10, torch.bfloat16, dev, seed=9)
+    g = torch.randn(16, 10, 7, 7, 256, device=dev).bfloat16()
+    assert _graph_nodes(lambda: ra.roi_align_cuda(f, boxes, 7, 2)) == (1, 1)
+    assert _graph_nodes(lambda: ra.roi_align_backward_cuda(
+        boxes, g, f.shape, 7, 2)) == (1, 1)
 
 
 def test_roi_align_autograd_on_card_matches_twin(dev):
