@@ -6,16 +6,21 @@ GPU.
     python3 kernel_compare.py --other <dir> [--kernels k1,roi]
 
 Records, with fresh weights from ``RNG_SEED`` as ``chip_smoke.py`` does,
-every K1 call of one served batch (``cfg/eval_coco.yml``, batch 16) and of
-one train step (``cfg/coco_objgan.yml``), and the 3 K2 and 3 K3 calls of
-that step (replayed with the recorded boxes, then with the padded
-objects' boxes zeroed, as real batches give them). Then it times both checkouts' kernels in turns (other, this,
-this, other), each turn the device time of one call per CUDA-graph replay
-(``chip_smoke.py``'s ``ms``) and of ten calls captured in one graph, per
-call (its ``ms_10_per_graph``), and checks both against this checkout's
-plain PyTorch twin. It prints the card's ``name, power.limit``, a line per
-K1 shape and per K2/K3 call (the min/max of each kernel's two turns) and the
-totals per served batch and per train step. The other checkout is only
+every K1 call of one served batch (``cfg/eval_coco.yml``, batch 16), of
+one train step (``cfg/coco_objgan.yml``) and of one DAMSM step
+(``cfg/damsm_coco.yml``, batch 48, after 6 steps of ``cli.pretrain_damsm``
+on ``data_proc2k/manifest.json``), and the 3 K2 and 3 K3 calls of the
+train step (replayed with the recorded boxes, then with the padded
+objects' boxes zeroed, as real batches give them). Then it times both
+checkouts' kernels in turns (other, this, this, other), each turn the
+device time of one call per CUDA-graph replay (``chip_smoke.py``'s ``ms``)
+and of ten calls captured in one graph, per call (its
+``ms_10_per_graph``), and checks both against this checkout's plain
+PyTorch twin, fp32 K1 calls also against the twin evaluated in fp64 (with
+the fp32 twin's own error beside them). It prints the card's ``name,
+power.limit``, a line per K1 shape and per K2/K3 call (the min/max of each
+kernel's two turns) and the totals per served batch, train step and DAMSM
+step. The other checkout is only
 read: its ``objgan_tpu_torch/csrc/<name>.cu`` is built with this checkout's
 nvcc flags into this checkout's ``_build/`` (named by the source's hash)
 and driven through its own ``ops/<name>.py``.
@@ -87,7 +92,44 @@ def record_calls():
     train, fwd, bwd, pad = cs._record_train_step(train_cfg, trainer)
     del trainer
     torch.cuda.synchronize()
-    return {"served batch": served, "train step": train}, fwd, bwd, pad
+    return ({"served batch": served, "train step": train,
+             "DAMSM step": record_damsm_step()}, fwd, bwd, pad)
+
+
+def record_damsm_step():
+    """Every K1 call of one DAMSM step at full ``cfg/damsm_coco.yml`` width
+    after 6 steps of ``cli.pretrain_damsm`` on the manifest, as
+    ``chip_smoke.py``'s phase ``damsm`` takes them."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import chip_smoke as cs
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml")
+                            ).merged({"OUTPUT_DIR": tmp})
+        feed, _, _ = build_feed(cfg, os.path.join(ROOT, cs.MANIFEST),
+                                with_masks=False)
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = cli.pretrain_damsm(cfg, feed, max_steps=cs.DAMSM_STEPS,
+                                         device="cuda")
+    batch = cli.to_device(next(cli._finest_scale_only(feed)), "cuda")
+    keep = trainer.text_enc.keep_mask(
+        batch["captions"], torch.Generator("cuda").manual_seed(123))
+    records, hooks = cs._record_gn(trainer)
+    try:
+        trainer.train_step(batch, keep)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return records
 
 
 def _span(kind, v, fmt=".1f"):
@@ -167,6 +209,8 @@ def compare_roi(fwd, bwd, pad, other):
 
 
 def compare_k1(name, records, other):
+    import torch
+
     from objgan_tpu_torch.ops import groupnorm as this
 
     shapes = {}
@@ -183,13 +227,21 @@ def compare_k1(name, records, other):
         want = this.group_norm_reference(x3, *args).float()
         errs = {k: float((f().float() - want).abs().max())
                 for k, f in fns.items()}
+        exact = ""
+        if x3.dtype == torch.float32:
+            ref = this.group_norm_reference(x3.double(), *args)
+            e64 = {k: float((f().double() - ref).abs().max())
+                   for k, f in fns.items()}
+            exact = (f"; against the twin in fp64: other {e64['other']:.3g}, "
+                     f"this {e64['this']:.3g}, the fp32 twin "
+                     f"{float((want.double() - ref).abs().max()):.3g}")
         times = _turns(fns)
         for kind, v in times.items():
             tot[kind][0] += n * min(v)
             tot[kind][1] += n * max(v)
         print(f"[{name}] {shape} {dt} {'GN+GLU' if glu else 'GN'} x{n}: "
-              f"max err other {errs['other']:.3g}, this {errs['this']:.3g} "
-              f"| us, one call per graph: "
+              f"max err other {errs['other']:.3g}, this {errs['this']:.3g}"
+              f"{exact} | us, one call per graph: "
               + ", ".join(_span(kind, times[kind]) for kind in KINDS[:2])
               + " | ten per graph: "
               + ", ".join(_span(kind, times[kind]) for kind in KINDS[2:]),

@@ -1,87 +1,356 @@
-"""Stage-C command-line paths of the port: train and sample. Port of
-``objgan_tpu/cli.py::train_gan``, ``sample_gan`` and ``_feed``.
+"""Training and sampling runners behind the port's entry points: DAMSM
+pretraining (``python -m objgan_tpu_torch.pretrain_damsm``) and Stage C,
+train or sample (``python -m objgan_tpu_torch.gan_main``). Port of
+``objgan_tpu/cli.py``: ``_out_dir``, ``_already_trained``,
+``apply_epoch_schedule``, ``_run_loop`` (one device, one step per call),
+``load_damsm_encoders``, ``pretrain_damsm``, ``train_gan`` and
+``sample_gan``.
 
-Both run on the synthetic COCO-shaped feed (``data/synthetic.py``) with
-fresh weights from ``cfg.RNG_SEED``: checkpoint save and resume, the
-pretrained-DAMSM loader, the manifest feed and the attention-grid
-snapshots are not ported yet (ROADMAP.md, slice 3).
+Each stage writes under ``OUTPUT_DIR/<CONFIG_NAME>_<stage>``: its
+checkpoints (``ckpt/<step>``, keep-3), ``<stage>_metrics.csv`` and the
+attention-grid snapshots, and resumes from its newest checkpoint. A step's
+noise comes from a generator seeded from (``RNG_SEED``, step)
+(``train/common.py::step_generator``), as do the synthetic batches when no
+manifest feed is given, so a resumed run equals an unbroken one on them. A
+manifest feed starts its shuffle over on a resume, as the JAX package's
+does.
+
 Everything runs on ``device`` ("cuda" unless the caller says otherwise);
 nothing moves to the CPU on its own.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import time
+from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from objgan_tpu_torch.core.checkpoint import CheckpointManager, latest_step_in
 from objgan_tpu_torch.core.config import Config
+from objgan_tpu_torch.core.metrics import MetricsWriter
 from objgan_tpu_torch.core.precision import true_fp32
 from objgan_tpu_torch.data.synthetic import synthetic_batch
+from objgan_tpu_torch.train.common import Trainer, step_generator
+from objgan_tpu_torch.train.damsm import DamsmTrainer
 from objgan_tpu_torch.train.gan import GanTrainer, train_noise
 
-
-def make_trainer(cfg: Config, device) -> GanTrainer:
-    """A Stage-C trainer with fresh weights from ``cfg.RNG_SEED`` (drawn on
-    the CPU, so a seed gives the same weights on every device) on
-    ``device``. Warns that no pretrained encoder or checkpoint is loaded."""
-    true_fp32()
-    trainer = GanTrainer(cfg).init_state(
-        torch.Generator().manual_seed(cfg.RNG_SEED))
-    print("WARNING: no checkpoint or pretrained DAMSM loader in the PyTorch "
-          "port yet — Stage C starts from UNTRAINED random weights and "
-          "frozen random encoders", file=sys.stderr)
-    return trainer.to(device)
+# step_generator streams: a step's noise, a synthetic batch, a snapshot's
+_NOISE, _DATA, _SNAPSHOT = 0, 1, 2
 
 
-def train_gan(cfg: Config, max_steps: int = 10 ** 9, device="cuda",
-              log_every: int = 50) -> GanTrainer:
-    """Stage-C adversarial training. Prints one metric line
-    ``[step N] name=value ...`` at the first step, every ``log_every``
-    steps and at the last step; ``steps_per_sec`` there is over the steps
-    since the previous line, synchronised. Returns the trainer."""
+def _out_dir(cfg: Config, stage: str) -> str:
+    d = os.path.join(cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_{stage}")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _already_trained(out: str, stage: str, max_steps: int) -> bool:
+    """True (and says so) when the stage's newest checkpoint already reaches
+    ``max_steps``, found by a directory scan before any model is built."""
+    if max_steps >= 10 ** 9:
+        return False
+    latest = latest_step_in(os.path.join(out, "ckpt"))
+    if latest is not None and latest >= max_steps:
+        print(f"{stage}: checkpoint at step {latest} >= max_steps "
+              f"{max_steps}; nothing to do")
+        return True
+    return False
+
+
+def apply_epoch_schedule(cfg: Config, n_records: int, max_steps: int):
+    """The lineage's epoch-denominated knobs in steps once the dataset size
+    is known: ``MAX_EPOCH`` epochs when no ``max_steps`` is given, and a
+    snapshot every ``SNAPSHOT_INTERVAL`` epochs unless ``SNAPSHOT_STEPS``
+    is set. Returns ``(cfg, max_steps)``."""
+    if n_records <= 0:
+        return cfg, max_steps
+    steps_per_epoch = max(1, n_records // cfg.TRAIN.BATCH_SIZE)
+    if max_steps >= 10 ** 9:
+        max_steps = cfg.TRAIN.MAX_EPOCH * steps_per_epoch
+        print(f"training {cfg.TRAIN.MAX_EPOCH} epochs x {steps_per_epoch} "
+              f"steps = {max_steps} steps")
+    if cfg.TRAIN.SNAPSHOT_STEPS == 0:
+        cfg = cfg.merged({"TRAIN": {
+            "SNAPSHOT_STEPS": cfg.TRAIN.SNAPSHOT_INTERVAL * steps_per_epoch
+        }})
+    return cfg, max_steps
+
+
+def to_device(batch: Dict, device) -> Dict:
+    """A feed's batch (numpy arrays, or tensors; "images" a list) on
+    ``device``: numpy goes through pinned memory and a non-blocking copy
+    to a CUDA device."""
     device = torch.device(device)
-    trainer = make_trainer(cfg, device)
-    gen = torch.Generator(device=device).manual_seed(cfg.RNG_SEED)
-    last_logged, t_last = trainer.step, time.monotonic()
-    while trainer.step < max_steps:
-        batch = synthetic_batch(cfg, gen)
-        b = batch["captions"].shape[0]
-        noise = train_noise(cfg, b, gen, device)
-        metrics = trainer.train_step(batch, noise["z"], noise["ca_eps"])
+
+    def move(x):
+        if isinstance(x, list):
+            return [move(v) for v in x]
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        if device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    return {k: move(v) for k, v in batch.items()}
+
+
+def synthetic_feed(cfg: Config, device, start: int = 0) -> Iterator[Dict]:
+    """Endless synthetic COCO-shaped batches on ``device``; batch i is drawn
+    from (RNG_SEED, i), starting at ``start``."""
+    for i in itertools.count(start):
+        yield synthetic_batch(cfg, step_generator(cfg.RNG_SEED, i, device,
+                                                  _DATA))
+
+
+def _finest_scale_only(feed: Iterator[Dict]) -> Iterator[Dict]:
+    """DAMSM reads only the finest image scale; the rest is not moved."""
+    for b in feed:
+        if "images" in b:
+            b = dict(b, images=[b["images"][-1]])
+        yield b
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.is_floating_point() else x).numpy()
+    return np.asarray(x)
+
+
+def _run_loop(cfg: Config, trainer: Trainer,
+              step_fn: Callable[[Dict, int], Dict], feed: Iterator[Dict],
+              writer: MetricsWriter, manager: CheckpointManager,
+              max_steps: int, snapshot_hook=None, log_every: int = 50):
+    """Step loop from the trainer's own (restored) step to ``max_steps``.
+    ``step_fn(batch, step)`` takes one step and returns its metrics. A
+    metric row (CSV, and stdout every ``log_every`` steps) at the first
+    step, every ``log_every`` steps and at the last, with
+    ``steps_per_sec`` over the steps since the previous row, synchronised.
+    A checkpoint and a snapshot every ``SNAPSHOT_STEPS`` steps (500 when
+    unset), and a checkpoint at the end; a step already saved is not
+    written again."""
+    step = trainer.step
+    last_logged, t_last, logged_any = step, time.monotonic(), False
+    snap_every = cfg.TRAIN.SNAPSHOT_STEPS or 500
+    while step < max_steps:
+        metrics = step_fn(next(feed), step)
         step = trainer.step
-        if (step - last_logged >= log_every or step == 1
+        if (step - last_logged >= log_every or not logged_any
                 or step == max_steps):
             vals = {k: float(v) for k, v in metrics.items()}  # synchronises
             now = time.monotonic()
             vals["steps_per_sec"] = (step - last_logged) / max(now - t_last,
                                                                1e-9)
-            last_logged, t_last = step, now
-            print(f"[step {step}] " + " ".join(
-                f"{k}={v:.5g}" for k, v in vals.items()), flush=True)
+            last_logged, t_last, logged_any = step, now, True
+            writer.write(step, vals)
+        if step % snap_every == 0:
+            manager.save(step, trainer)
+            if snapshot_hook is not None:
+                snapshot_hook(step)
+    manager.save(step, trainer)
+    writer.close()
+
+
+def load_damsm_encoders(cfg: Config):
+    """Pretrained DAMSM encoder weights for Stage C: the newest checkpoint
+    of ``TRAIN.NET_E``, a DAMSM pretraining ``ckpt`` directory (default
+    ``OUTPUT_DIR/<CONFIG_NAME>_damsm/ckpt``). Returns the text and image
+    encoders' state dicts (CPU), or ``(None, None)`` when there is no such
+    checkpoint or it does not match the config."""
+    path = cfg.TRAIN.NET_E or os.path.join(
+        cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_damsm", "ckpt")
+    if latest_step_in(path) is None:
+        return None, None
+    trainer = DamsmTrainer(cfg)
+    step = CheckpointManager(path).restore_latest(trainer)
+    if step is None:
+        return None, None
+    print(f"loaded pretrained DAMSM encoders from {path} (step {step})")
+    return trainer.text_enc.state_dict(), trainer.img_enc.state_dict()
+
+
+def make_trainer(cfg: Config, device, text_enc=None,
+                 img_enc=None) -> GanTrainer:
+    """A Stage-C trainer with fresh weights from ``cfg.RNG_SEED`` (drawn on
+    the CPU, so a seed gives the same weights on every device) on
+    ``device``; ``text_enc`` / ``img_enc`` are pretrained encoder state
+    dicts (``load_damsm_encoders``)."""
+    true_fp32()
+    trainer = GanTrainer(cfg).init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED), text_enc, img_enc)
+    return trainer.to(device)
+
+
+def _gan_trainer(cfg: Config, device) -> GanTrainer:
+    text_enc, img_enc = load_damsm_encoders(cfg)
+    if text_enc is None:
+        print("=" * 72 + "\nWARNING: no pretrained DAMSM encoder checkpoint "
+              f"found (TRAIN.NET_E={cfg.TRAIN.NET_E!r}, default "
+              f"{cfg.OUTPUT_DIR}/{cfg.CONFIG_NAME}_damsm/ckpt).\nStage C "
+              "runs against FROZEN UNTRAINED random encoders: the sentence/"
+              "word\nconditioning and the DAMSM loss are noise. Run python "
+              "-m objgan_tpu_torch.pretrain_damsm\nfirst.\n" + "=" * 72,
+              file=sys.stderr, flush=True)
+    return make_trainer(cfg, device, text_enc, img_enc)
+
+
+def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+              max_steps: int = 10 ** 9, device="cuda", log_every: int = 50,
+              ixtoword: Optional[dict] = None) -> Optional[GanTrainer]:
+    """Stage-C adversarial training on ``feed`` (a manifest feed's numpy
+    batches; synthetic batches when None). Loads the DAMSM encoders
+    (``TRAIN.NET_E``), resumes from the stage's own newest checkpoint, and
+    every ``SNAPSHOT_STEPS`` renders the EMA generator's word->region
+    (``attn_step<N>.png``) and object->word (``objs_step<N>.png``) grids on
+    the first batch. ``ixtoword`` renders the words. Returns the trainer,
+    or None when the checkpoints already reach ``max_steps``."""
+    from objgan_tpu_torch.data.glove import COCO_CLASSES
+    from objgan_tpu_torch.utils.visualize import (build_object_images,
+                                                  build_super_images,
+                                                  save_png)
+
+    device = torch.device(device)
+    out = _out_dir(cfg, "gan")
+    if _already_trained(out, "gan", max_steps):
+        return None
+    trainer = _gan_trainer(cfg, device)
+    manager = CheckpointManager(os.path.join(out, "ckpt"))
+    restored = manager.restore_latest(trainer)
+    if restored is not None:
+        print(f"resumed from step {restored}")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, trainer.step)
+    first = next(feed)
+    feed = itertools.chain([first], feed)
+    first_dev = to_device(first, device)
+    b = first_dev["captions"].shape[0]
+
+    def step_fn(batch, step):
+        noise = train_noise(cfg, b, step_generator(cfg.RNG_SEED, step,
+                                                   device, _NOISE), device)
+        return trainer.train_step(to_device(batch, device), noise["z"],
+                                  noise["ca_eps"])
+
+    def snapshot(step):
+        noise = train_noise(cfg, b, step_generator(cfg.RNG_SEED, step,
+                                                   device, _SNAPSHOT), device)
+        o = trainer.sample(first_dev, noise["z"], noise["ca_eps"])
+        images = _numpy(o["images"][-1])
+        caps, lens = _numpy(first["captions"]), _numpy(first["cap_lens"])
+        save_png(os.path.join(out, f"attn_step{step}.png"),
+                 build_super_images(images, _numpy(o["grid_attn"][-1]),
+                                    captions=caps, cap_lens=lens,
+                                    ixtoword=ixtoword))
+        save_png(os.path.join(out, f"objs_step{step}.png"),
+                 build_object_images(
+                     images, _numpy(first["boxes"]), _numpy(first["labels"]),
+                     _numpy(first["obj_valid"]), _numpy(o["obj_attn"][-1]),
+                     captions=caps, cap_lens=lens, ixtoword=ixtoword,
+                     class_names=COCO_CLASSES))
+
+    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "gan",
+                                                         log_every),
+              manager, max_steps, snapshot, log_every)
     return trainer
 
 
-def sample_gan(cfg: Config, num_batches: int = 10, device="cuda") -> str:
-    """Stage-C sampling with the EMA generator: one PNG per image into
-    ``OUTPUT_DIR/<CONFIG_NAME>_gan_samples``. Returns that directory."""
+def sample_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+               num_batches: int = 10, device="cuda") -> str:
+    """Stage-C sampling with the EMA generator of ``TRAIN.NET_G`` (a
+    Stage-C ``ckpt`` directory; default this config's training output):
+    one PNG per image into ``OUTPUT_DIR/<CONFIG_NAME>_gan_samples``. Batch
+    i's noise is drawn from (RNG_SEED, i). Returns that directory."""
     from objgan_tpu_torch.utils.visualize import _to_uint8, save_png
 
     device = torch.device(device)
-    out = os.path.join(cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_gan_samples")
-    os.makedirs(out, exist_ok=True)
-    trainer = make_trainer(cfg, device)
-    gen = torch.Generator(device=device).manual_seed(cfg.RNG_SEED)
+    out = _out_dir(cfg, "gan_samples")
+    trainer = _gan_trainer(cfg, device)
+    ckpt_dir = cfg.TRAIN.NET_G or os.path.join(_out_dir(cfg, "gan"), "ckpt")
+    restored = (CheckpointManager(ckpt_dir).restore_latest(trainer)
+                if latest_step_in(ckpt_dir) is not None else None)
+    if restored is None:
+        print(f"WARNING: no generator checkpoint found under {ckpt_dir} — "
+              "sampling with UNTRAINED random weights (noise images); "
+              "check TRAIN.NET_G / OUTPUT_DIR")
+    if feed is None:
+        feed = synthetic_feed(cfg, device)
     n = 0
     for i in range(num_batches):
-        batch = synthetic_batch(cfg, gen)
-        noise = train_noise(cfg, batch["captions"].shape[0], gen, device)
-        imgs = trainer.sample(batch, noise["z"], noise["ca_eps"])["images"]
-        imgs = imgs[-1].cpu().numpy()
+        batch = to_device(next(feed), device)
+        noise = train_noise(cfg, batch["captions"].shape[0],
+                            step_generator(cfg.RNG_SEED, i, device, _NOISE),
+                            device)
+        imgs = _numpy(trainer.sample(batch, noise["z"],
+                                     noise["ca_eps"])["images"][-1])
         for j in range(imgs.shape[0]):
             save_png(os.path.join(out, f"s{i}_{j}.png"), _to_uint8(imgs[j]))
         n += imgs.shape[0]
     print(f"wrote {n} samples to {out}")
     return out
+
+
+def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+                   max_steps: int = 10 ** 9, device="cuda",
+                   log_every: int = 50,
+                   ixtoword: Optional[dict] = None) -> Optional[DamsmTrainer]:
+    """DAMSM encoder pretraining on ``feed`` (synthetic batches when None),
+    resumed from the stage's newest checkpoint. Every ``SNAPSHOT_STEPS`` it
+    renders the matched pairs' word->region attention over the first batch
+    (``attn_step<N>.png``; ``ixtoword`` renders the words). Returns the
+    trainer, or None when the checkpoints already reach ``max_steps``."""
+    from objgan_tpu_torch.losses.damsm_loss import words_loss
+    from objgan_tpu_torch.utils.visualize import build_super_images, save_png
+
+    device = torch.device(device)
+    out = _out_dir(cfg, "damsm")
+    if _already_trained(out, "damsm", max_steps):
+        return None
+    true_fp32()
+    trainer = DamsmTrainer(cfg).init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED)).to(device)
+    manager = CheckpointManager(os.path.join(out, "ckpt"))
+    restored = manager.restore_latest(trainer)
+    if restored is not None:
+        print(f"resumed from step {restored}")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, trainer.step)
+    feed = _finest_scale_only(feed)
+    first = next(feed)
+    feed = itertools.chain([first], feed)
+    first_dev = to_device(first, device)
+    smooth = cfg.TRAIN.SMOOTH
+
+    def step_fn(batch, step):
+        batch = to_device(batch, device)
+        keep = trainer.text_enc.keep_mask(
+            batch["captions"], step_generator(cfg.RNG_SEED, step, device,
+                                              _NOISE))
+        return trainer.train_step(batch, keep)
+
+    @torch.no_grad()
+    def snapshot(step):
+        caps, lens = first_dev["captions"], first_dev["cap_lens"]
+        words, _ = trainer.text_enc(caps, lens)
+        regions, _ = trainer.img_enc(first_dev["images"][-1])
+        *_, attns = words_loss(regions, words, lens, first_dev["class_ids"],
+                               smooth.GAMMA1, smooth.GAMMA2, smooth.GAMMA3)
+        idx = torch.arange(attns.shape[0], device=attns.device)
+        diag = _numpy(attns[idx, idx])  # (B, T, L): caption i on image i
+        b, t, l = diag.shape
+        r = int(round(l ** 0.5))
+        maps = diag.reshape(b, t, r, r).transpose(0, 2, 3, 1)
+        save_png(os.path.join(out, f"attn_step{step}.png"),
+                 build_super_images(_numpy(first["images"][-1]), maps,
+                                    captions=_numpy(caps),
+                                    cap_lens=_numpy(lens),
+                                    ixtoword=ixtoword))
+
+    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "damsm",
+                                                         log_every),
+              manager, max_steps, snapshot, log_every)
+    return trainer

@@ -14,7 +14,7 @@ imports JAX, so the rules are restated here):
   names and the JAX layout, single bias included.
 
 ``load_gan_state`` loads a whole Stage-C train state into the port's
-trainer.
+trainer, ``load_damsm_state`` a DAMSM pretraining state.
 """
 
 from __future__ import annotations
@@ -99,4 +99,13 @@ def load_gan_state(trainer: nn.Module, state) -> None:
     load_jax_params(trainer.img_enc, state.img_params)
     with torch.no_grad():
         trainer.label_table.copy_(torch.tensor(np.asarray(state.label_table)))
+    trainer.reset_optimizers()
+
+
+def load_damsm_state(trainer: nn.Module, state) -> None:
+    """Load a JAX ``DamsmTrainState`` (its ``text_params`` and
+    ``img_params``, as numpy or JAX arrays) into a
+    ``train.damsm.DamsmTrainer``. The optimisers start fresh, at step 0."""
+    load_jax_params(trainer.text_enc, state.text_params)
+    load_jax_params(trainer.img_enc, state.img_params)
     trainer.reset_optimizers()

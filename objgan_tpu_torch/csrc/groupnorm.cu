@@ -5,6 +5,10 @@
 // _pallas_group_norm launches). Same semantics as that kernel and as
 // objgan_tpu_torch/ops/groupnorm.py::group_norm_reference:
 //   per (batch, group): mean = E[x], var = max(E[x^2] - E[x]^2, 0) in fp32,
+//   taken about a pivot k (the group's first value in row 0): mean = k +
+//   E[x - k], var = max(E[(x - k)^2] - E[x - k]^2, 0), the same in exact
+//   arithmetic; in fp32 it spares the cancellation that E[x^2] - E[x]^2
+//   suffers when |mean| >> std (E[x - k] is of the order of std);
 //   inv = rsqrt(var + eps); per channel a_c = inv * scale_c,
 //   b_c = bias_c - mean * a_c; y = x * a_c + b_c rounded to the I/O dtype.
 //   With GLU, out[:, j] = y[:, j] * sigmoid(y[:, j + C/2]), the gate computed
@@ -24,6 +28,11 @@
 //      through a ring of kStages bulk-copied slots for long streams.
 //   2. Per-channel fp32 sums and sums of squares: threads stride over rows
 //      with 16-byte vectors along C, then a fixed-order tree over the block.
+//      The sums are taken about the pivot (above), and a thread sums the
+//      kUnroll rows it holds before adding them to its running sums. (E[x^2]
+//      - E[x]^2 of plain sums magnifies their error by 1 + mean^2 / var,
+//      about 37 at the DAMSM step's (48, 16384, 32), which put fp32 calls
+//      there near the tolerance K1 is held to.)
 //   3. The cluster gathers every CTA's per-channel partials through
 //      distributed shared memory behind barrier.cluster and sums them in
 //      rank order: every CTA computes the same group statistics and
@@ -224,12 +233,14 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Sums rows [0, nrows) of src (row stride C) at channels [v*V, v*V + V)
-// into acc / acc2: this thread takes rows ty, ty + rpi, ..., U rows in
-// flight. With COPY each vector is also stored at the same place in dst.
+// Sums rows [0, nrows) of src (row stride C) at channels [v*V, v*V + V),
+// less the pivots k, into acc / acc2: this thread takes rows ty, ty + rpi,
+// ..., U rows in flight. With COPY each vector is also stored at the same
+// place in dst.
 template <typename T, int V, int U, bool COPY>
 __device__ __forceinline__ void accumulate(const T* src, T* dst, int nrows,
                                            int C, int v, int ty, int rpi,
+                                           const float (&k)[V],
                                            float (&acc)[V], float (&acc2)[V]) {
   for (int r = ty; r < nrows; r += U * rpi) {
     float e[U][V];
@@ -240,7 +251,7 @@ __device__ __forceinline__ void accumulate(const T* src, T* dst, int nrows,
         load_vec<T, V>(src + (size_t)rr * C + (size_t)v * V, e[u]);
       } else {
 #pragma unroll
-        for (int j = 0; j < V; ++j) e[u][j] = 0.f;
+        for (int j = 0; j < V; ++j) e[u][j] = k[j];  // adds nothing
       }
     }
     if (COPY) {
@@ -251,13 +262,19 @@ __device__ __forceinline__ void accumulate(const T* src, T* dst, int nrows,
                                         e[u]);
       }
     }
+    // the U rows of this step summed first, then added to the running
+    // sums: a thread's sequential chain is nrows / U long
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int j = 0; j < V; ++j) {
+      float s = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        acc[j] += e[u][j];
-        acc2[j] = fmaf(e[u][j], e[u][j], acc2[j]);
+      for (int u = 0; u < U; ++u) {
+        const float d = e[u][j] - k[j];
+        s += d;
+        s2 = fmaf(d, d, s2);
       }
+      acc[j] += s;
+      acc2[j] += s2;
     }
   }
 }
@@ -391,8 +408,11 @@ __global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
     coef[C + c] = p.bias[c];
   }
 
-  // 2. per-channel partial sums of this CTA's rows. With a ring, C / V <=
-  // 256 (the plan sees to it): one column chunk, uniform loops.
+  // 2. per-channel partial sums of this CTA's rows, about the pivot of the
+  // channel's group (its first value in row 0 of the batch element). With
+  // a ring, C / V <= 256 (the plan sees to it): one column chunk, uniform
+  // loops.
+  const int cg_size = C / p.G;
   const int nvec = C / V;
   const int tpr = min(nvec, kThreads);  // threads along a row
   const int rpi = kThreads / tpr;       // rows per iteration
@@ -402,21 +422,35 @@ __global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
   for (int v0 = 0; v0 < nvec; v0 += tpr) {
     const int v = v0 + tx;
     const bool on = active && v < nvec;
-    float acc[V], acc2[V];
+    float acc[V], acc2[V], piv[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = acc2[j] = 0.f;
+    if (!on) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) piv[j] = 0.f;
+    } else if (cg_size % V == 0) {  // the vector lies in one group
+      const float k = to_f32(xb[v * V / cg_size * cg_size]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) piv[j] = k;
+    } else if (cg_size == 1) {  // each channel its own group
+      load_vec<T, V>(xb + (size_t)v * V, piv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        piv[j] = to_f32(xb[(v * V + j) / cg_size * cg_size]);
+    }
     for (int j = 0; j < nring; ++j) {  // streamed rows through the ring
       wait_ring(j);
       if (on)
         accumulate<T, V, kUnroll, false>(ring_slot(j), nullptr, ring_len(j),
-                                         C, v, ty, rpi, acc, acc2);
+                                         C, v, ty, rpi, piv, acc, acc2);
       __syncthreads();  // the slot is free again
       if (threadIdx.x == 0 && j + kStages < 2 * nring)
         fetch_ring(j + kStages);
     }
     if (!nring && on)  // streamed rows with 16-byte loads
       accumulate<T, V, kUnroll, false>(xb + (size_t)s0 * C, nullptr, r1 - s0,
-                                       C, v, ty, rpi, acc, acc2);
+                                       C, v, ty, rpi, piv, acc, acc2);
     if (bulk) {
       for (int k = 0; k < nchunks; ++k) {
         mbar_wait(&bars[k], 0);  // every thread: apply reads the whole tile
@@ -424,11 +458,11 @@ __global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
         if (on)
           accumulate<T, V, kUnroll, false>(
               tile + (size_t)c_r0 * C, nullptr,
-              min(chunk_rows, nres - c_r0), C, v, ty, rpi, acc, acc2);
+              min(chunk_rows, nres - c_r0), C, v, ty, rpi, piv, acc, acc2);
       }
     } else if (on) {  // the resident rows copied by the threads
       accumulate<T, V, kUnroll, true>(xb + (size_t)r0 * C, tile, nres, C, v,
-                                      ty, rpi, acc, acc2);
+                                      ty, rpi, piv, acc, acc2);
     }
     // block reduction over ty, a tree in a fixed order: sums, then sums
     // of squares; row y takes row y + half while h rows remain
@@ -491,7 +525,6 @@ __global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
   }
   if (cs > 1) cluster_arrive();  // done reading the others' partials
   __syncthreads();
-  const int cg_size = C / p.G;
   const float count = (float)N * (float)cg_size;
   for (int c = threadIdx.x; c < C; c += kThreads) {
     const int g0 = c / cg_size * cg_size;
@@ -500,8 +533,10 @@ __global__ void __launch_bounds__(kThreads, 2) gn_fused_kernel(Params p) {
       s += tot[g0 + k];
       s2 += tot[C + g0 + k];
     }
-    const float mean = s / count;
-    const float var = fmaxf(s2 / count - mean * mean, 0.f);
+    // about the pivot: E[x] = k + E[x - k], var = E[(x-k)^2] - E[x-k]^2
+    const float d = s / count;
+    const float mean = to_f32(xb[g0]) + d;
+    const float var = fmaxf(s2 / count - d * d, 0.f);
     const float a = rsqrtf(var + p.eps) * coef[c];
     coef[C + c] -= mean * a;
     coef[c] = a;

@@ -24,9 +24,10 @@
 //
 // K2: one block per (b, o, channel tile). Warp 0 builds the box's merged
 //     taps: per axis and bin, the <= 2q distinct pixels its samples weigh
-//     and their summed weights (zero weights dropped). Every thread finds
-//     the box's footprint from its first and last samples. Then, patch by
-//     patch of the footprint (rows x chunk pixels):
+//     and their summed weights (zero weights dropped), while one thread of
+//     warp 1 finds the box's footprint from its first and last samples;
+//     both go through shared memory. Then, patch by patch of the footprint
+//     (rows x chunk pixels):
 //       copy         the patch into shared memory, cp.async, 16 bytes a
 //                    thread along channels;
 //       row pass     t[i, x, c] = sum_y A_y[i, y] F[b, y, x, c] into fp32
@@ -302,10 +303,15 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int lt = __ffs(tile) - 1;
   const int cv = threadIdx.x & (tile - 1), grp = threadIdx.x >> lt;
   const float* box = boxes + (size_t)bo * 4;  // (x0, y0, w, h)
-  // every thread: the footprint, which bounds the patches
-  int y_lo, y_hi, x_lo, x_hi;
-  axis_extent(box[1], box[3], H, R * q, &y_lo, &y_hi);
-  axis_extent(box[0], box[2], W, R * q, &x_lo, &x_hi);
+  // the footprint, which bounds the patches: lane 0 of warp 1 finds it and
+  // every thread reads it from shared memory. (Computed by every thread,
+  // ptxas 12.8 fused the clamps of axis_extent into the patch's row count
+  // and staged rows past the footprint, reading past the features.)
+  int* foot = pix + 2 * R * taps;  // y_lo, y_hi, x_lo, x_hi
+  if (threadIdx.x == 32) {
+    axis_extent(box[1], box[3], H, R * q, &foot[0], &foot[1]);
+    axis_extent(box[0], box[2], W, R * q, &foot[2], &foot[3]);
+  }
   const T* fb = f + (size_t)b * H * W * C + (size_t)v0 * V;
   if (threadIdx.x < 32) {
     const float inv_q = 1.f / (float)q;
@@ -326,6 +332,8 @@ __global__ void __launch_bounds__(kFwdThreads)
   for (int s = 0; s < kFwdOwn; ++s)
 #pragma unroll
     for (int e = 0; e < V; ++e) acc[s][e] = 0.f;
+  __syncthreads();  // the footprint and the taps
+  const int y_lo = foot[0], y_hi = foot[1], x_lo = foot[2], x_hi = foot[3];
 
   for (int c0 = x_lo; c0 <= x_hi; c0 += chunk) {
     const int cw = min(chunk, x_hi + 1 - c0);

@@ -1,0 +1,46 @@
+"""The trainers' host feed from a dataset manifest. Port of
+``gan/main.py::build_feed`` for one process (global record ids: offset 0,
+stride 1); the uint8 wire feed and the Grain feed are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator, Optional, Tuple
+
+from objgan_tpu_torch.core.config import Config
+from objgan_tpu_torch.data.pipeline import (CocoFeed, load_records_json,
+                                            split_records)
+from objgan_tpu_torch.data.tokenizer import Vocab
+
+
+def build_feed(cfg: Config, manifest: Optional[str],
+               captions_pickle: Optional[str] = None,
+               image_root: Optional[str] = None, with_images: bool = True,
+               with_masks: bool = True
+               ) -> Tuple[Optional[Iterator], int, Optional[Vocab]]:
+    """``(feed or None, number of records, vocab or None)``; no manifest
+    gives ``(None, 0, None)`` and the caller feeds synthetic batches.
+
+    The vocabulary is built from the manifest's captions, or read from the
+    lineage's ``captions_pickle``. With ``cfg.B_VALIDATION`` training
+    (``TRAIN.FLAG``) takes the train portion of ``split_records`` and
+    sampling the held-out one. Only a training feed augments (flip, <unk>
+    word dropout). ``image_root``: the directory the records'
+    ``image_file`` paths are relative to, by default the manifest's own."""
+    if not manifest:
+        return None, 0, None
+    records = load_records_json(manifest)
+    vocab = (Vocab.from_reference_pickle(captions_pickle) if captions_pickle
+             else Vocab.build(c for r in records for c in r["captions"]))
+    if cfg.B_VALIDATION:
+        train_recs, val_recs = split_records(records, seed=cfg.RNG_SEED)
+        records = train_recs if cfg.TRAIN.FLAG else val_recs
+        print(f"B_VALIDATION split: {len(train_recs)} train / "
+              f"{len(val_recs)} held-out; using "
+              f"{'train' if cfg.TRAIN.FLAG else 'held-out'}")
+    root = image_root or os.path.dirname(os.path.abspath(manifest))
+    feed = CocoFeed(cfg, records, vocab, seed=cfg.RNG_SEED,
+                    with_images=with_images, with_masks=with_masks,
+                    augment=bool(cfg.TRAIN.FLAG), image_root=root)
+    return iter(feed), len(records), vocab

@@ -1,10 +1,14 @@
 """Stage-C entry point of the PyTorch port, mirroring ``gan/main.py``:
 
     python -m objgan_tpu_torch.gan_main --cfg cfg/coco_objgan.yml \
-        --max_steps 4 [--device cpu]
+        [--manifest data_proc2k/manifest.json] --max_steps 4 [--device cpu]
 
-``TRAIN.FLAG`` switches training (one metric line per logged step) and
-sampling (PNGs under ``OUTPUT_DIR``). Runs on the CUDA device unless
+``TRAIN.FLAG`` switches training (metric lines, keep-3 checkpoints, the
+metrics CSV and attention grids under ``OUTPUT_DIR/<CONFIG_NAME>_gan``;
+resumes from its newest checkpoint) and sampling from ``TRAIN.NET_G`` (PNGs
+under ``OUTPUT_DIR``). Both load the DAMSM encoders of ``TRAIN.NET_E``
+(``python -m objgan_tpu_torch.pretrain_damsm``). Without ``--manifest``
+they run on synthetic COCO-shaped batches. Runs on the CUDA device unless
 ``--device`` says otherwise.
 """
 
@@ -12,11 +16,9 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md, slice 3): checkpoint save and "
-          "resume, the pretrained-DAMSM loader (TRAIN.NET_E), the dataset "
-          "manifest feed (--manifest, --wire, --grain) and the attention-"
-          "grid snapshots. Training and sampling run on synthetic "
-          "COCO-shaped batches with fresh weights from RNG_SEED.")
+_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
+          "Grain multi-worker feed (--grain), loading a JAX (Orbax) "
+          "checkpoint, and the 'inception' image backbone.")
 
 
 def main(argv=None) -> None:
@@ -25,8 +27,17 @@ def main(argv=None) -> None:
                     "sample.", epilog=_LATER)
     ap.add_argument("--cfg", dest="cfg_file", default=None,
                     help="reference-style yml config (default: Config())")
+    ap.add_argument("--manifest", default=None,
+                    help="dataset manifest JSON (data/pipeline.py); "
+                         "synthetic batches without it")
+    ap.add_argument("--captions_pickle", default=None,
+                    help="reference captions.pickle for vocab parity")
+    ap.add_argument("--data_dir", default=None,
+                    help="directory the manifest's image_file paths are "
+                         "relative to (default: the manifest's own)")
     ap.add_argument("--max_steps", type=int, default=10 ** 9,
-                    help="training: steps to take")
+                    help="training: steps to reach (default: MAX_EPOCH "
+                         "epochs of the manifest)")
     ap.add_argument("--num_batches", type=int, default=10,
                     help="sampling: batches to generate")
     ap.add_argument("--log_every", type=int, default=50,
@@ -37,13 +48,20 @@ def main(argv=None) -> None:
 
     from objgan_tpu_torch import cli
     from objgan_tpu_torch.core.config import Config, cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
 
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
+    feed, n_records, vocab = build_feed(cfg, args.manifest,
+                                        args.captions_pickle, args.data_dir)
     if cfg.TRAIN.FLAG:
-        cli.train_gan(cfg, max_steps=args.max_steps, device=args.device,
-                      log_every=args.log_every)
+        cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records,
+                                                  args.max_steps)
+        cli.train_gan(cfg, feed, max_steps=max_steps, device=args.device,
+                      log_every=args.log_every,
+                      ixtoword=vocab.ixtoword if vocab else None)
     else:
-        cli.sample_gan(cfg, num_batches=args.num_batches, device=args.device)
+        cli.sample_gan(cfg, feed, num_batches=args.num_batches,
+                       device=args.device)
 
 
 if __name__ == "__main__":

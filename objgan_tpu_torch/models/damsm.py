@@ -1,8 +1,10 @@
-"""DAMSM text and image encoders, frozen (no dropout, eval only). Port of
-``objgan_tpu/models/damsm.py``:
+"""DAMSM text and image encoders. Port of ``objgan_tpu/models/damsm.py``:
 
-* ``RNNEncoder``: embedding + bi-LSTM; per-word features (B, T, 2H) and the
-  sentence embedding (B, 2H), the final hiddens of both directions.
+* ``RNNEncoder``: embedding + dropout + bi-LSTM; per-word features
+  (B, T, 2H) and the sentence embedding (B, 2H), the final hiddens of both
+  directions. Dropout (``drop_prob`` 0.5, DAMSM pretraining only) takes its
+  keep mask as an argument (``keep_mask``); without one the encoder is
+  deterministic, as Stage C and serving run it.
 * ``CNNEncoder`` (InceptionLite): an all-conv backbone with a 16x16 region
   grid at 256 px; region features (B, R*R, D) and a global feature (B, D),
   both projected to ``TEXT.EMBEDDING_DIM``, fp32.
@@ -11,6 +13,8 @@ Both run fp32. The ``inception`` backbone is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -23,14 +27,34 @@ from objgan_tpu_torch.ops.lstm import BiLSTM
 
 class RNNEncoder(nn.Module):
     def __init__(self, vocab_size: int, embed_dim: int = 300,
-                 hidden_dim: int = 128):
+                 hidden_dim: int = 128, drop_prob: float = 0.5):
         super().__init__()
         self.embedding = Embed(vocab_size, embed_dim)
         self.bilstm = BiLSTM(embed_dim, hidden_dim)
+        self.drop_prob = drop_prob
 
-    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor):
-        outs, (h_f, h_b) = self.bilstm(self.embedding(captions), cap_lens)
+    def forward(self, captions: torch.Tensor, cap_lens: torch.Tensor,
+                keep_mask: Optional[torch.Tensor] = None):
+        """``keep_mask`` (B, T, embed_dim) bool, True where an embedding
+        value is kept: kept values are scaled by 1 / (1 - drop_prob), the
+        rest zeroed, as Linen's ``nn.Dropout``."""
+        emb = self.embedding(captions)
+        if keep_mask is not None:
+            emb = torch.where(keep_mask, emb / (1.0 - self.drop_prob),
+                              torch.zeros((), dtype=emb.dtype,
+                                          device=emb.device))
+        outs, (h_f, h_b) = self.bilstm(emb, cap_lens)
         return outs, torch.cat([h_f, h_b], dim=-1)
+
+    def keep_mask(self, captions: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+        """A dropout keep mask for ``captions`` (B, T), drawn on the
+        generator's device: each value kept with probability
+        1 - drop_prob."""
+        b, t = captions.shape
+        u = torch.rand(b, t, self.embedding.weight.shape[1],
+                       generator=generator, device=generator.device)
+        return u < 1.0 - self.drop_prob
 
 
 def build_text_encoder(cfg: Config) -> RNNEncoder:

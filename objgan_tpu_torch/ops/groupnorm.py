@@ -19,6 +19,9 @@ package's ``custom_vjp`` does (``_gn_bwd``). There is no backward kernel.
 Semantics are the JAX package's ``group_norm_reference``: Linen GroupNorm
 statistics in fp32 (E[x^2] - E[x]^2 clamped at 0), the per-channel affine,
 a cast back to the input dtype, then optionally GLU over the channel halves.
+The kernel takes its sums about a pivot (csrc/groupnorm.cu), which equals
+E[x^2] - E[x]^2 in exact arithmetic and keeps fp32 from cancelling where
+|mean| >> std; there it is closer to the exact statistics than the twin.
 """
 
 from __future__ import annotations
@@ -70,15 +73,18 @@ _SIZES = (1, 2, 4, 8, _MAX_CLUSTER)
 def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, num_groups: int, eps: float,
                          use_glu: bool) -> torch.Tensor:
-    """Plain PyTorch twin of kernel K1. x is (B, ..., C) channels-last."""
+    """Plain PyTorch twin of kernel K1. x is (B, ..., C) channels-last. It
+    computes in fp32 (in fp64 for an fp64 x, which ``chip_smoke.py`` uses
+    as the exact reference for K1's fp32 calls)."""
     shape = x.shape
     c = shape[-1]
-    xf = x.float().reshape(shape[0], -1, num_groups, c // num_groups)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct).reshape(shape[0], -1, num_groups, c // num_groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     mean2 = (xf * xf).mean(dim=(1, 3), keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     y = (xf - mean) * torch.rsqrt(var + eps)
-    y = y.reshape(shape) * scale.float() + bias.float()
+    y = y.reshape(shape) * scale.to(ct) + bias.to(ct)
     y = y.to(x.dtype)
     if use_glu:
         a, g = y.chunk(2, dim=-1)

@@ -1,0 +1,62 @@
+"""DAMSM pretraining entry point of the PyTorch port, mirroring
+``gan/pretrain_DAMSM.py``:
+
+    python -m objgan_tpu_torch.pretrain_damsm --cfg cfg/damsm_coco.yml \
+        --manifest data_proc2k/manifest.json --max_steps N [--device cpu]
+
+Trains the DAMSM text and image encoders on the manifest's records
+(synthetic batches without ``--manifest``), writes keep-3 checkpoints, the
+metrics CSV and attention-grid snapshots under
+``OUTPUT_DIR/<CONFIG_NAME>_damsm``, and resumes from its newest checkpoint
+when run again. Stage C loads the encoders through ``TRAIN.NET_E``. Runs
+on the CUDA device unless ``--device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
+          "Grain multi-worker feed (--grain) and the 'inception' image "
+          "backbone.")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="DAMSM text/image encoder pretraining.", epilog=_LATER)
+    ap.add_argument("--cfg", dest="cfg_file", default=None,
+                    help="reference-style yml config (default: Config())")
+    ap.add_argument("--manifest", default=None,
+                    help="dataset manifest JSON (data/pipeline.py); "
+                         "synthetic batches without it")
+    ap.add_argument("--captions_pickle", default=None,
+                    help="reference captions.pickle for vocab parity")
+    ap.add_argument("--data_dir", default=None,
+                    help="directory the manifest's image_file paths are "
+                         "relative to (default: the manifest's own)")
+    ap.add_argument("--max_steps", type=int, default=10 ** 9,
+                    help="steps to reach (default: MAX_EPOCH epochs of the "
+                         "manifest)")
+    ap.add_argument("--log_every", type=int, default=50,
+                    help="steps between metric lines")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda)")
+    args = ap.parse_args(argv)
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import Config, cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+
+    cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
+    # DAMSM reads images, captions and class ids: no per-object masks
+    feed, n_records, vocab = build_feed(
+        cfg, args.manifest, args.captions_pickle, args.data_dir,
+        with_masks=False)
+    cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
+    cli.pretrain_damsm(cfg, feed, max_steps=max_steps, device=args.device,
+                       log_every=args.log_every,
+                       ixtoword=vocab.ixtoword if vocab else None)
+
+
+if __name__ == "__main__":
+    main()

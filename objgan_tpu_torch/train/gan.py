@@ -13,15 +13,17 @@ the EMA copy of G moves with decay 0.999.
 
 The DAMSM text and image encoders and the label table are frozen: the
 encoders run without dropout and without parameter gradients (the image
-encoder still passes the gradient on to the fake images). With ``GAN.REMAT:
-stages`` every D and image-encoder forward runs under
-``torch.utils.checkpoint``, as do G's attention stages.
+encoder still passes the gradient on to the fake images); ``init_state``
+takes pretrained encoder weights. With ``GAN.REMAT: stages`` every D and
+image-encoder forward runs under ``torch.utils.checkpoint``, as do G's
+attention stages. ``state_dict`` covers every network, the EMA generator,
+the label table, every optimiser and the step (``train/common.py``).
 """
 
 from __future__ import annotations
 
 import types
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -42,6 +44,7 @@ from objgan_tpu_torch.models.discriminator import (ObjectDNet,
                                                    build_discriminators)
 from objgan_tpu_torch.models.generator import GNet, kl_loss
 from objgan_tpu_torch.ops import rasterize
+from objgan_tpu_torch.train.common import Trainer, adam
 
 
 def _default_label_table(cfg: Config,
@@ -101,11 +104,7 @@ def train_noise(cfg: Config, batch: int, generator: torch.Generator,
     }
 
 
-def _adam(params, lr: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr, betas=(0.5, 0.999), eps=1e-8)
-
-
-class GanTrainer(nn.Module):
+class GanTrainer(Trainer):
     """Every Stage-C network, the optimisers and the EMA generator.
 
     ``init_state(generator)`` draws fresh weights (call it on the CPU, then
@@ -137,14 +136,23 @@ class GanTrainer(nn.Module):
 
     # -- state --------------------------------------------------------------
 
-    def init_state(self, generator: torch.Generator) -> "GanTrainer":
+    def init_state(self, generator: torch.Generator,
+                   text_enc: Optional[Dict[str, torch.Tensor]] = None,
+                   img_enc: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> "GanTrainer":
         """Fresh weights from ``generator``, fresh optimiser state, the EMA
-        copy equal to G."""
+        copy equal to G. ``text_enc`` / ``img_enc``: pretrained encoder
+        state dicts (DAMSM pretraining's) that replace the drawn encoders;
+        every other network is drawn as without them."""
         for net in (self.text_enc, self.img_enc, self.g_net, self.d_nets,
                     self.obj_d):
             init_weights(net, generator)
         with torch.no_grad():
             self.label_table.copy_(_default_label_table(self.cfg, generator))
+        for net, state in ((self.text_enc, text_enc), (self.img_enc,
+                                                        img_enc)):
+            if state is not None:
+                net.load_state_dict(state)
         self.sync_ema()
         self.reset_optimizers()
         return self
@@ -157,11 +165,14 @@ class GanTrainer(nn.Module):
     def reset_optimizers(self) -> None:
         """Fresh Adam state for G, each DNet and the object D; step 0."""
         lr_d = self.cfg.TRAIN.DISCRIMINATOR_LR
-        self.g_opt = _adam(self.g_net.parameters(),
-                           self.cfg.TRAIN.GENERATOR_LR)
-        self.d_opts = [_adam(d.parameters(), lr_d) for d in self.d_nets]
-        self.objd_opt = _adam(self.obj_d.parameters(), lr_d)
+        self.g_opt = adam(self.g_net.parameters(),
+                          self.cfg.TRAIN.GENERATOR_LR)
+        self.d_opts = [adam(d.parameters(), lr_d) for d in self.d_nets]
+        self.objd_opt = adam(self.obj_d.parameters(), lr_d)
         self.step = 0
+
+    def optimizers(self):
+        return [self.g_opt, *self.d_opts, self.objd_opt]
 
     def _named(self, prefixes) -> Dict[str, nn.Parameter]:
         return {n: p for n, p in self.named_parameters()
@@ -285,7 +296,7 @@ class GanTrainer(nn.Module):
         for name, p in self.named_parameters():
             if name in grads:
                 p.grad = grads[name]
-        for opt in (self.g_opt, *self.d_opts, self.objd_opt):
+        for opt in self.optimizers():
             opt.step()
             opt.zero_grad(set_to_none=True)
         ema = list(self.ema_g.parameters())

@@ -1,6 +1,6 @@
 """The port's kernels against their plain PyTorch twins on the card: K1
-(objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model gives
-it and under autograd, K2 and K3 (objgan_tpu_torch/csrc/roi_align.cu) at
+(objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model and a
+DAMSM step give it and under autograd, K2 and K3 (objgan_tpu_torch/csrc/roi_align.cu) at
 the train step's shapes and under autograd. Card-only: marked ``cuda`` and
 skipped without a CUDA device. This file imports neither JAX nor the
 parity helpers, so on a GPU host it runs as
@@ -54,6 +54,14 @@ SHAPES = [
     (160, 64, 256, torch.float32, False),    # ShapeGenerator _Down_2
     (3, 37, 6, torch.float32, False),        # C % 4 != 0: scalar path
     (2, 100, 12, torch.bfloat16, True),      # C/2 % 8 != 0: scalar path
+    # the fp32 image encoder of a DAMSM step (cfg/damsm_coco.yml, B = 48);
+    # C = 32 is one channel per group
+    (48, 16384, 32, torch.float32, False),
+    (48, 4096, 64, torch.float32, False),
+    (48, 1024, 128, torch.float32, False),
+    (48, 256, 256, torch.float32, False),
+    (48, 64, 512, torch.float32, False),
+    (48, 16, 512, torch.float32, False),
 ]
 
 
@@ -81,6 +89,25 @@ def _k1_matches_twin(x, scale, bias, use_glu):
 def test_k1_matches_twin(dev, b, n, c, dtype, use_glu):
     x, scale, bias = _inputs(b, n, c, dtype, dev)
     _k1_matches_twin(x, scale, bias, use_glu)
+
+
+def test_k1_statistics_of_an_offset_slice(dev):
+    """K1's statistics at (48, 16384, 32) fp32, the DAMSM step's largest
+    call, with every channel's mean six standard deviations from 0:
+    against GroupNorm in fp64 within 1e-5. E[x^2] - E[x]^2 taken in fp32
+    as it stands loses a factor 1 + mean^2 / var = 37 of fp32's precision
+    here; K1 sums about a pivot."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(48, 16384, 32, generator=g, device=dev) + 6.0
+    scale = torch.rand(32, generator=g, device=dev) + 0.5
+    bias = torch.randn(32, generator=g, device=dev) * 0.2
+    got = groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-6, False)
+    xd = x.double()
+    mean = xd.mean(dim=1, keepdim=True)
+    var = (xd * xd).mean(dim=1, keepdim=True) - mean * mean
+    want = (xd - mean) * torch.rsqrt(var + 1e-6) * scale.double() \
+        + bias.double()
+    assert float((got.double() - want).abs().max()) <= 1e-5
 
 
 # (B, N, C, dtype, use_glu, regime, cluster): just below and just above the

@@ -159,3 +159,207 @@ def test_png_copy_writes_identical_bytes(tmp_path):
     tvis.save_png(str(tmp_path / "t.png"), u8)
     jvis.save_png(str(tmp_path / "j.png"), u8)
     assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+
+
+# -- the feed, metrics and grids: copies of the JAX package's host modules ----
+
+from objgan_tpu.core import metrics as jmetrics  # noqa: E402
+from objgan_tpu.data import pipeline as jpipe  # noqa: E402
+from objgan_tpu_torch.core import metrics as tmetrics  # noqa: E402
+from objgan_tpu_torch.data import feed as tfeed  # noqa: E402
+from objgan_tpu_torch.data import pipeline as tpipe  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def manifest(tmp_path_factory):
+    """A 12-record procedural COCO manifest at 64 px (PNG files, polygon
+    segmentations), written by the JAX package's generator."""
+    from objgan_tpu.data.procedural import build_manifest
+
+    return build_manifest(str(tmp_path_factory.mktemp("proc")), n_images=12,
+                          size=64, seed=0)
+
+
+def _feed_cfgs(**overrides):
+    over = {"OBJ": {"NUM_CLASSES": 81}, "TEXT": {"VOCAB_SIZE": 500},
+            "TRAIN": {"BATCH_SIZE": 4}, **overrides}
+    return jconfig.tiny_test_config().merged(over), \
+        tconfig.tiny_test_config().merged(over)
+
+
+def _assert_batches_equal(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if k == "images":
+            assert len(got[k]) == len(w)
+            for g, w_ in zip(got[k], w):
+                assert g.dtype == w_.dtype
+                np.testing.assert_array_equal(g, w_)
+        else:
+            assert got[k].dtype == w.dtype, k
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def _inline(records):
+    """The records with their photos inline at 96 px (area resize through
+    the strided mean and PIL's box filter) instead of on disk."""
+    r = np.random.default_rng(3)
+    return [dict({k: v for k, v in rec.items() if k != "image_file"},
+                 image=r.integers(0, 256, (96, 96, 3)).astype(np.uint8))
+            for rec in records]
+
+
+@pytest.mark.parametrize("source", ["file", "inline"])
+@pytest.mark.parametrize("with_masks", [True, False])
+@pytest.mark.parametrize("augment", [True, False])
+def test_coco_feed_copy_matches_original(manifest, source, with_masks,
+                                         augment):
+    """Three batches of the port's ``CocoFeed`` equal the JAX package's,
+    to the bit: same seed, same shuffle, captions, word dropout, flips,
+    layouts, masks and image pyramids."""
+    records = jpipe.load_records_json(manifest)
+    assert records == tpipe.load_records_json(manifest)
+    if source == "inline":
+        records = _inline(records)
+    jc, tc = _feed_cfgs(TEXT={"VOCAB_SIZE": 500, "WORD_DROPOUT": 0.3})
+    root = os.path.dirname(manifest)
+    caps = [c for rec in records for c in rec["captions"]]
+    kw = dict(seed=7, with_masks=with_masks, augment=augment,
+              image_root=root)
+    want = iter(jpipe.CocoFeed(jc, records, JVocab.build(caps), **kw))
+    got = iter(tpipe.CocoFeed(tc, records, TVocab.build(caps), **kw))
+    for _ in range(3):
+        _assert_batches_equal(next(got), next(want))
+
+
+@pytest.mark.parametrize("b_validation,train", [(False, True), (True, True),
+                                                (True, False)])
+def test_build_feed_matches_gan_main(manifest, b_validation, train):
+    """``data/feed.py::build_feed`` against ``gan/main.py::build_feed`` (one
+    process; the JAX side reads images under DATA_DIR, the port under the
+    manifest's directory): the record count, the vocabulary and two
+    batches."""
+    import types
+
+    from gan.main import build_feed as jax_build_feed
+
+    over = {"B_VALIDATION": b_validation,
+            "DATA_DIR": os.path.dirname(manifest),
+            "TRAIN": {"BATCH_SIZE": 4, "FLAG": train}}
+    jc, tc = _feed_cfgs(**over)
+    args = types.SimpleNamespace(manifest=manifest, captions_pickle=None)
+    want_feed, want_n, want_vocab = jax_build_feed(jc, args,
+                                                   with_masks=train)
+    got_feed, got_n, got_vocab = tfeed.build_feed(
+        tc.replace(DATA_DIR="elsewhere"), manifest, with_masks=train)
+    assert got_n == want_n == (11 if b_validation and train else
+                               1 if b_validation else 12)
+    assert got_vocab.wordtoix == want_vocab.wordtoix
+    for _ in range(2):
+        _assert_batches_equal(next(got_feed), next(want_feed))
+    assert tfeed.build_feed(tc, None) == (None, 0, None)
+
+
+@pytest.mark.parametrize("n", [1, 2, 10, 37])
+@pytest.mark.parametrize("seed", [0, 100])
+def test_split_records_copy_matches_original(n, seed):
+    records = [{"id": i} for i in range(n)]
+    assert tpipe.split_records(records, seed=seed) == \
+        jpipe.split_records(records, seed=seed)
+
+
+def test_polygon_fill_copy_matches_original():
+    r = np.random.default_rng(0)
+    for _ in range(5):
+        poly = r.uniform(0.1, 0.9, (7, 2))
+        box = np.array([0.05, 0.1, 0.8, 0.85])
+        np.testing.assert_array_equal(
+            tpipe.polygon_to_box_mask(poly, box, 16),
+            jpipe._numpy_polygon_fill(
+                np.stack([(poly[:, 0] - 0.05) / 0.8,
+                          (poly[:, 1] - 0.1) / 0.85], -1), 16))
+        np.testing.assert_array_equal(
+            tpipe.polygon_to_box_mask(poly, box, 16),
+            jpipe.polygon_to_box_mask(poly, box, 16))
+    img = r.uniform(-1, 1, (48, 40, 3)).astype(np.float32)
+    for size in (8, 16, 20):
+        np.testing.assert_array_equal(tpipe._resize_area(img, size),
+                                      jpipe._resize_area(img, size))
+
+
+@pytest.mark.parametrize("case", ["vocab", "label_zero", "label_high",
+                                  "mixed_images"])
+def test_validators_copy_raise_alike(case):
+    jc, tc = _feed_cfgs()
+    rec = {"captions": ["a dog"], "labels": [3], "boxes": [[0, 0, 1, 1]],
+           "image_file": "x.png"}
+    if case == "vocab":
+        caps = [f"w{i}" for i in range(600)]
+        with pytest.raises(ValueError, match="VOCAB_SIZE"):
+            jpipe.validate_vocab(jc, JVocab.build(caps))
+        with pytest.raises(ValueError, match="VOCAB_SIZE"):
+            tpipe.validate_vocab(tc, TVocab.build(caps))
+        return
+    records = {"label_zero": [dict(rec, labels=[0])],
+               "label_high": [dict(rec, labels=[81])],
+               "mixed_images": [rec, dict(rec, image_file=None)]}[case]
+    messages = []
+    for mod, cfg in ((jpipe, jc), (tpipe, tc)):
+        with pytest.raises(ValueError) as exc:
+            if case == "mixed_images":
+                mod.validate_image_records(records)
+            else:
+                mod.validate_labels(cfg, records)
+        messages.append(str(exc.value))
+    assert messages[0] == messages[1]
+
+
+def test_metrics_writer_copy_writes_identical_csv(tmp_path, monkeypatch,
+                                                  capsys):
+    """The same rows (a resume-append whose new key is dropped included)
+    give the same CSV bytes and the same stdout."""
+    import time as time_mod
+
+    def run(mod, directory):
+        clock = iter(np.arange(0.0, 100.0, 0.25))
+        monkeypatch.setattr(time_mod, "monotonic", lambda: float(next(clock)))
+        w = mod.MetricsWriter(str(directory), "damsm", print_every=2)
+        for step in range(1, 6):
+            w.write(step, {"loss": 1.0 / step, "lr": np.float32(2e-4)})
+        w.close()
+        w = mod.MetricsWriter(str(directory), "damsm", print_every=2)
+        w.write(6, {"loss": 0.5, "lr": 1e-4, "new_key": 3.0})
+        w.close()
+        return (directory / "damsm_metrics.csv").read_bytes(), \
+            capsys.readouterr().out.replace(str(directory), "<dir>")
+
+    want = run(jmetrics, tmp_path / "jax")
+    got = run(tmetrics, tmp_path / "port")
+    assert got == want
+    assert b"new_key" not in got[0] and "new_key" in got[1]
+
+
+def test_attention_grids_copy_match_original():
+    r = np.random.default_rng(0)
+    b, s, t, o = 3, 32, 5, 4
+    images = r.uniform(-1, 1, (b, s, s, 3)).astype(np.float32)
+    attn = r.uniform(0, 1, (b, 4, 4, t)).astype(np.float32)
+    caps = r.integers(1, 9, (b, t)).astype(np.int32)
+    lens = np.array([5, 3, 1], np.int32)
+    ixtoword = {i: f"w{i}" for i in range(1, 6)}
+    for kw in ({}, {"captions": caps, "cap_lens": lens,
+                    "ixtoword": ixtoword}):
+        np.testing.assert_array_equal(
+            tvis.build_super_images(images, attn, **kw),
+            jvis.build_super_images(images, attn, **kw))
+    boxes = r.uniform(0, 0.6, (b, o, 4)).astype(np.float32)
+    labels = r.integers(1, 81, (b, o)).astype(np.int32)
+    valid = np.array([[1, 1, 0, 0], [1, 0, 0, 0], [1, 1, 1, 1]], np.float32)
+    obj_attn = r.uniform(0, 1, (b, o, t)).astype(np.float32)
+    for kw in ({}, {"captions": caps, "cap_lens": lens, "ixtoword": ixtoword,
+                    "class_names": tglove.COCO_CLASSES}):
+        np.testing.assert_array_equal(
+            tvis.build_object_images(images, boxes, labels, valid, obj_attn,
+                                     **kw),
+            jvis.build_object_images(images, boxes, labels, valid, obj_attn,
+                                     **kw))

@@ -2,8 +2,9 @@
 CPU: the pure-Python function that picks, per call shape, the regime
 (resident or streaming), the cluster size, the rows per CTA and the dynamic
 shared memory of the one kernel launch in ``csrc/groupnorm.cu``. Checked at
-every K1 shape of a served batch (``cfg/eval_coco.yml``) and of a train step
-(``cfg/coco_objgan.yml``), at the odd widths that take the scalar path and
+every K1 shape of a served batch (``cfg/eval_coco.yml``), of a train step
+(``cfg/coco_objgan.yml``) and of a DAMSM pretraining step
+(``cfg/damsm_coco.yml``, B = 48), at the odd widths that take the scalar path and
 on both sides of the regime threshold. The kernel itself is compared with
 its twin on the card (``tests/test_torch_cuda.py``)."""
 
@@ -42,6 +43,13 @@ TRAIN_SHAPES = [
     (16, 1024, 128, 4, False), (16, 256, 256, 4, False),
     (16, 64, 512, 4, False), (16, 16, 512, 4, False),
 ]
+# the fp32 image encoder of a DAMSM pretraining step at B = 48: 8 calls,
+# (48, 1024, 128) and (48, 256, 256) twice; C = 32 is one channel per group
+DAMSM_SHAPES = [
+    (48, 16384, 32, 4, False), (48, 4096, 64, 4, False),
+    (48, 1024, 128, 4, False), (48, 256, 256, 4, False),
+    (48, 64, 512, 4, False), (48, 16, 512, 4, False),
+]
 ODD_SHAPES = [(3, 37, 6, 4, False), (2, 100, 12, 2, True)]
 # slices at the resident/streaming threshold, just below and just above
 THRESHOLD_SHAPES = [
@@ -49,7 +57,8 @@ THRESHOLD_SHAPES = [
     (2, 3408, 96, 4, False), (2, 3409, 96, 4, False),
     (1, 57216, 6, 4, False), (1, 57217, 6, 4, False),
 ]
-ALL_SHAPES = SERVE_SHAPES + TRAIN_SHAPES + ODD_SHAPES + THRESHOLD_SHAPES
+ALL_SHAPES = (SERVE_SHAPES + TRAIN_SHAPES + DAMSM_SHAPES + ODD_SHAPES
+              + THRESHOLD_SHAPES)
 
 
 def _fits(n, c, itemsize, vec, cs):
@@ -121,6 +130,31 @@ def test_plan_of_served_shapes(shape):
     assert (plan.regime, plan.cluster) == SERVED_PLANS[shape]
 
 
+# a 132-SM H100 holds 231 CTAs of such clusters at once: at B = 48 clusters
+# of at most 4 run in one wave, so the three largest slices stream
+DAMSM_PLANS = {
+    (48, 16384, 32, 4, False): ("streaming", 4, 128),
+    (48, 4096, 64, 4, False): ("streaming", 4, 64),
+    (48, 1024, 128, 4, False): ("streaming", 4, 0),
+    (48, 256, 256, 4, False): ("resident", 4, 0),
+    (48, 64, 512, 4, False): ("resident", 4, 0),
+    (48, 16, 512, 4, False): ("resident", 1, 0),
+}
+
+
+@pytest.mark.parametrize("shape", DAMSM_PLANS)
+def test_plan_of_damsm_shapes(shape):
+    """(regime, cluster, ring rows) at each K1 shape of a DAMSM step: one
+    wave of 48 clusters, 16-byte vectors (4 fp32, so a vector of the C = 32
+    call spans four one-channel groups), each CTA streaming at most
+    768 KB, through the ring where it streams more than 96 KB."""
+    b, n, c, itemsize, glu = shape
+    plan = tgn._plan(*shape, 132)
+    assert (plan.regime, plan.cluster, plan.ring_rows) == DAMSM_PLANS[shape]
+    assert b * plan.cluster <= tgn._slots(132) and plan.vec == 4
+    assert (plan.rows - plan.res_rows) * c * itemsize <= 768 * 1024
+
+
 def test_plan_picks_every_cluster_size():
     """bf16 (2, N, 256): up to 4 CTAs while each keeps 32 KB, then the
     smallest cluster that holds the slice; 16 only over several waves."""
@@ -166,3 +200,28 @@ def test_fixed_smem_matches_the_kernel_source():
                         ("kMaxCluster", tgn._MAX_CLUSTER)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert "(kChunks + kStages) * 8 + kThreads * V * 4 + 6 * C * 4" in src
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_twin_computes_in_fp32_or_the_inputs_wider_precision(dtype):
+    """The twin's arithmetic is fp32 for fp32 and bf16 inputs and fp64 for
+    fp64 inputs (the exact reference the card's check holds K1's fp32
+    calls against), and its output keeps the input's dtype."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(2, 5, 8, generator=g, dtype=torch.float64) * 0.5
+         + 6.0).to(dt)
+    scale = torch.rand(8, generator=g) + 0.5
+    bias = torch.randn(8, generator=g)
+    got = tgn.group_norm_reference(x, scale, bias, 4, 1e-6, False)
+    assert got.dtype == dt
+    ct = torch.float64 if dt == torch.float64 else torch.float32
+    xf = x.to(ct).reshape(2, 5, 4, 2)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp(
+        min=0.0)
+    want = ((xf - mean) * torch.rsqrt(var + 1e-6)).reshape(2, 5, 8) \
+        * scale.to(ct) + bias.to(ct)
+    assert torch.equal(got, want.to(dt))
