@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths with fresh weights from ``RNG_SEED``:
-serving at the full width of ``cfg/eval_coco.yml`` (batch 16, bf16 Stage C,
-64 -> 128 -> 256 px) and the Stage-C train step at the full width of
+Drives the port's paths with fresh weights from ``RNG_SEED``: serving at
+the full width of ``cfg/eval_coco.yml`` (batch 16, bf16 Stage C, 64 -> 128
+-> 256 px), the Stage-C train step at the full width of
 ``cfg/coco_objgan.yml`` (batch 16, bf16 G and D, DF_DIM 64, 10 objects,
-ROI 7), and checks every hand-written kernel on them:
+ROI 7), DAMSM pretraining, Stage-A and Stage-B training, and serving the
+three trained stages from their checkpoints; and checks every
+hand-written kernel on them:
 
 1. build        K1 (``csrc/groupnorm.cu``) and K2/K3 (``csrc/roi_align.cu``)
                 compiled by nvcc, one process per source, in parallel;
@@ -71,7 +73,34 @@ ROI 7), and checks every hand-written kernel on them:
                 encoder at B = 48), checked as in phase 3;
 13. small_damsm one tiny fp32 DAMSM step on the GPU (K1 under autograd)
                 against the same weights, batch and dropout mask on the
-                CPU (twins): metrics and every gradient.
+                CPU (twins): metrics and every gradient;
+14. box         ``cli.train_box`` (what ``python -m
+                objgan_tpu_torch.box_train`` runs) takes BOX_STEPS steps
+                at the width of ``Config()`` (RNN 1024, batch 16, 20 GMM
+                components in corr mode) on the manifest's layouts:
+                finite losses, every parameter moved, no kernel launched,
+                the checkpoint round trip as in phase 11, one step under
+                torch.profiler; ``cli.sample_box`` (temperature, and beam
+                search at K = 3) and ``cli.eval_box`` on 2 batches;
+15. shape       ``cli.train_shape`` (``python -m
+                objgan_tpu_torch.shape_main``) takes SHAPE_STEPS steps at
+                the width of ``cfg/shape_coco.yml`` (160 objects, 64 px,
+                fp32) on the manifest's layouts and masks: finite losses,
+                G and D moved, K1 launched 11 times a step, the checkpoint
+                round trip, the device step on a resident batch (and once
+                under torch.profiler) and the host feed apart;
+                ``cli.eval_shape`` on 2 batches;
+16. shape_k1    every K1 call of one more Stage-B step (B = 160, fp32),
+                checked as in phase 3;
+17. small_shape one tiny fp32 Stage-B step on the GPU (K1 under autograd)
+                against the same weights, batch and noise on the CPU;
+18. compose     the Stage-C (phase 6), Stage-A and Stage-B checkpoints,
+                all under one OUTPUT_DIR as ``coco_objgan``, served by
+                ``run_serve`` at ``cfg/eval_coco.yml`` with ``output_dir``:
+                every stage restored, none untrained, and the first
+                batch's layout, masks and images equal to those of
+                ``cli.sample_box``, the restored Stage-B sampler and the
+                restored Stage-C sampler for the same noise.
 
 Times are device time from CUDA events around a CUDA-graph replay of one
 call, median of 20, unless a line says otherwise. K1, K2, K3 and
@@ -120,7 +149,10 @@ BF16_ATOL, BF16_RTOL = 3e-2, 2e-2
 ROI_BF16_ATOL, ROI_BF16_RTOL = 1e-2, 1e-2
 TRAIN_STEPS = 6
 DAMSM_STEPS = 6
-MANIFEST = os.path.join("data_proc2k", "manifest.json")
+BOX_STEPS = 5
+SHAPE_STEPS = 5
+DATA_DIR = "data_proc2k"  # the manifest's image_file paths are under it
+MANIFEST = os.path.join(DATA_DIR, "manifest.json")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 FP32_FLOPS_PER_S = 67e12    # H100 SXM, fp32 outside the tensor cores
 
@@ -1043,42 +1075,32 @@ def phase_roi(fwd, bwd, pad):
     return res
 
 
+def _small_step(phase, stage, what, counts):
+    """A tiny fp32 ``grads`` call of ``stage`` on the GPU (kernels) against
+    the CPU (twins), through ``train/card_check.py``; ``counts()`` reads the
+    launch counts of the kernels it must run. Returns their rise."""
+    from objgan_tpu_torch.train import card_check
+
+    before = counts()
+    r = card_check.tiny_step_on_card(stage, "cuda")
+    rose = [a - b for a, b in zip(counts(), before)]
+    check(r["metric_err"] <= card_check.METRIC_RTOL,
+          f"metrics differ by {r['metric_err']:.3g} relative")
+    check(r["grad_err"] <= card_check.GRAD_RTOL,
+          f"gradient of {r['worst']} differs by {r['grad_err']:.3g}")
+    log(phase, f"tiny fp32 {what}, GPU ({rose} launches) vs CPU (twins), "
+        f"same weights, batch and noise: {r['metrics']} metrics within "
+        f"{r['metric_err']:.3g} relative (rtol {card_check.METRIC_RTOL}); "
+        f"{r['grads']} parameter gradients within {r['grad_err']:.3g} "
+        f"relative norm (worst {r['worst']}; limit {card_check.GRAD_RTOL})")
+    return rose
+
+
 def phase_small_train():
     """A tiny fp32 train step, GPU (kernels) against CPU (twins)."""
-    import torch
-
-    from objgan_tpu_torch.core.config import tiny_test_config
-    from objgan_tpu_torch.data.synthetic import synthetic_batch
-    from objgan_tpu_torch.train.gan import GanTrainer, train_noise
-
-    cfg = tiny_test_config().merged({"DTYPE": "float32"})
-    cpu = GanTrainer(cfg).init_state(torch.Generator().manual_seed(0))
-    gpu = copy.deepcopy(cpu).cuda()
-    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
-    noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE,
-                        torch.Generator().manual_seed(2), "cpu")
-    want_g, want_m = cpu.grads(batch, noise["z"], noise["ca_eps"])
-    before = _counts()
-    cuda = {k: ([x.cuda() for x in v] if isinstance(v, list) else v.cuda())
-            for k, v in batch.items()}
-    got_g, got_m = gpu.grads(cuda, noise["z"].cuda(), noise["ca_eps"].cuda())
-    torch.cuda.synchronize()
-    rose = [a - b for a, b in zip(_counts(), before)]
+    rose = _small_step("small_train", "gan", "train step (K1, K2, K3)",
+                       _counts)
     check(all(n > 0 for n in rose), f"K1/K2/K3 launches on the GPU: {rose}")
-    m_err = max(abs(float(got_m[k]) - float(v)) / max(abs(float(v)), 1e-6)
-                for k, v in want_m.items())
-    check(m_err <= 1e-4, f"metrics differ by {m_err:.3g} relative")
-    g_err, worst = 0.0, ""
-    for k, w in want_g.items():
-        e = float((got_g[k].cpu() - w).norm() / w.norm().clamp(min=1e-12))
-        if e > g_err:
-            g_err, worst = e, k
-    check(g_err <= 1e-3, f"gradient of {worst} differs by {g_err:.3g}")
-    log("small_train", f"tiny fp32 train step, GPU (K1 {rose[0]}, K2 "
-        f"{rose[1]}, K3 {rose[2]} launches) vs CPU (twins), same weights, "
-        f"batch and noise: {len(want_m)} metrics within {m_err:.3g} "
-        f"relative (rtol 1e-4); {len(want_g)} parameter gradients within "
-        f"{g_err:.3g} relative norm (worst {worst}; limit 1e-3)")
 
 
 def _differing(a, b):
@@ -1106,7 +1128,6 @@ def phase_damsm():
     import torch
 
     from objgan_tpu_torch import cli
-    from objgan_tpu_torch.core.checkpoint import CheckpointManager
     from objgan_tpu_torch.core.config import cfg_from_file
     from objgan_tpu_torch.data.feed import build_feed
     from objgan_tpu_torch.ops import groupnorm
@@ -1115,7 +1136,8 @@ def phase_damsm():
     manifest = os.path.join(ROOT, MANIFEST)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_damsm_")
     cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml")).merged(
-        {"OUTPUT_DIR": tmp, "TRAIN": {"SNAPSHOT_STEPS": 3}})
+        {"OUTPUT_DIR": tmp, "DATA_DIR": os.path.join(ROOT, DATA_DIR),
+         "TRAIN": {"SNAPSHOT_STEPS": 3}})
     feed, n_records, vocab = build_feed(cfg, manifest, with_masks=False)
     cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, DAMSM_STEPS)
     seed = DamsmTrainer(cfg).init_state(
@@ -1185,31 +1207,15 @@ def phase_damsm():
         f"{k} {seen[-1][k]:.4g}" for k in ("w_loss0", "w_loss1", "s_loss0",
                                            "s_loss1", "damsm_total")))
 
-    # the checkpoint, restored into a fresh trainer on the card
-    fresh = DamsmTrainer(cfg).init_state(
-        torch.Generator().manual_seed(cfg.RNG_SEED + 1)).cuda()
-    check(CheckpointManager(ckpt_dir).restore_latest(fresh) == DAMSM_STEPS,
-          "the newest checkpoint did not restore")
-    live_sd = trainer.state_dict()
-    diff = _differing(live_sd, fresh.state_dict())
-    check(not diff, f"restored state differs at {diff[:3]}")
-    n_tensors = len(live_sd)
-    # one more step from both, same batch and mask
+    # the checkpoint, restored into a fresh trainer on the card; one more
+    # step from both, same batch and mask
     batch = cli.to_device(next(cli._finest_scale_only(feed)), "cuda")
     keep = trainer.text_enc.keep_mask(
         batch["captions"], torch.Generator("cuda").manual_seed(123))
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        trainer.train_step(batch, keep)
-        fresh.train_step(batch, keep)
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    diff = _differing(trainer.state_dict(), fresh.state_dict())
-    check(not diff, f"a step from the restored trainer differs at "
-          f"{diff[:3]}")
-    del fresh
+    n_tensors = _check_round_trip(
+        "damsm", trainer, DamsmTrainer(cfg).init_state(
+            torch.Generator().manual_seed(cfg.RNG_SEED + 1)).cuda(),
+        ckpt_dir, DAMSM_STEPS, lambda tr: tr.train_step(batch, keep))
     log("damsm", f"checkpoint at step {DAMSM_STEPS} restored into a fresh "
         f"trainer on the card: all {n_tensors} tensors (weights, Adam "
         f"moments, steps) bitwise equal; one more step from the live and the "
@@ -1258,6 +1264,8 @@ def phase_damsm():
                        map_location="cpu", weights_only=True)
     gan_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml")
                             ).merged({"OUTPUT_DIR": tmp,
+                                      "DATA_DIR": os.path.join(ROOT,
+                                                               DATA_DIR),
                                       "TRAIN": {"NET_E": ckpt_dir}})
     gan_feed, n_records, vocab = build_feed(gan_cfg, manifest)
     gan_cfg, gan_steps = cli.apply_epoch_schedule(gan_cfg, n_records, 2)
@@ -1311,44 +1319,481 @@ def phase_damsm_k1(trainer, batch, keep):
         return _check_k1("damsm_k1", records, "DAMSM step")
 
 
+def _k1_count():
+    from objgan_tpu_torch.ops import groupnorm
+
+    return [groupnorm.launches]
+
+
 def phase_small_damsm():
     """A tiny fp32 DAMSM step, GPU (K1 under autograd) against CPU
     (twins): metrics and every gradient."""
+    rose = _small_step("small_damsm", "damsm", "DAMSM step (K1)", _k1_count)
+    check(rose == [8], f"K1 launches on the GPU: {rose}")
+
+
+def _run_stage(phase, run, cfg, feed, steps, module_counts=()):
+    """``run(cfg, feed, ...)`` (``cli.train_box`` / ``cli.train_shape``) for
+    ``steps`` steps on the card, logging each step, with every kernel count
+    set to 0 just before and read just after. Returns (trainer, metric
+    rows, kernel counts, forward calls of ``module_counts`` types, wall s,
+    peak GiB)."""
+    import collections
+    import contextlib
+    import io
+
     import torch
 
-    from objgan_tpu_torch.core.config import tiny_test_config
-    from objgan_tpu_torch.data.synthetic import synthetic_batch
-    from objgan_tpu_torch.ops import groupnorm
-    from objgan_tpu_torch.train.damsm import DamsmTrainer
+    calls = collections.Counter()
 
-    cfg = tiny_test_config().merged({"DTYPE": "float32"})
-    cpu = DamsmTrainer(cfg).init_state(torch.Generator().manual_seed(0))
-    gpu = copy.deepcopy(cpu).cuda()
-    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1))
-    keep = cpu.text_enc.keep_mask(batch["captions"],
-                                  torch.Generator().manual_seed(2))
-    want_g, want_m = cpu.grads(batch, keep)
-    before = groupnorm.launches
-    cuda = {k: ([x.cuda() for x in v] if isinstance(v, list) else v.cuda())
-            for k, v in batch.items()}
-    got_g, got_m = gpu.grads(cuda, keep.cuda())
-    torch.cuda.synchronize()
-    rose = groupnorm.launches - before
-    check(rose == 8, f"K1 launches on the GPU: {rose}")
-    m_err = max(abs(float(got_m[k]) - float(v)) / max(abs(float(v)), 1e-6)
-                for k, v in want_m.items())
-    check(m_err <= 1e-4, f"metrics differ by {m_err:.3g} relative")
-    g_err, worst = 0.0, ""
-    for k, w in want_g.items():
-        e = float((got_g[k].cpu() - w).norm() / w.norm().clamp(min=1e-12))
-        if e > g_err:
-            g_err, worst = e, k
-    check(g_err <= 1e-3, f"gradient of {worst} differs by {g_err:.3g}")
-    log("small_damsm", f"tiny fp32 DAMSM step, GPU ({rose} K1 launches) vs "
-        f"CPU (twins), same weights, batch and dropout mask: {len(want_m)} "
-        f"metrics within {m_err:.3g} relative (rtol 1e-4); {len(want_g)} "
-        f"gradients within {g_err:.3g} relative norm (worst {worst}; limit "
-        f"1e-3)")
+    def count(mod, _):
+        if isinstance(mod, module_counts):
+            calls[type(mod)] += 1
+
+    out = io.StringIO()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            trainer = run(cfg, feed, max_steps=steps, device="cuda",
+                          log_every=1)
+        torch.cuda.synchronize()
+        counts = _counts()
+        wall_s = time.monotonic() - t0
+    finally:
+        hook.remove()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    seen = _metric_lines(out.getvalue())
+    check(len(seen) == steps, f"{len(seen)} metric lines for {steps} steps")
+    bad = [k for m in seen for k, v in m.items() if not math.isfinite(v)]
+    check(not bad, f"non-finite metrics: {sorted(set(bad))}")
+    return trainer, seen, counts, calls, wall_s, peak_gb
+
+
+def _check_moved(phase, before, trainer, prefixes):
+    """Every parameter under ``prefixes`` moved from its initial value."""
+    import torch
+
+    now = dict(trainer.named_parameters())
+    moved = {}
+    for prefix in prefixes:
+        names = [k for k in before if k.startswith(prefix)]
+        same = [k for k in names
+                if torch.equal(before[k], now[k].detach().cpu())]
+        check(names and not same, f"{phase}: {same[:3]} did not change")
+        moved[prefix.rstrip(".")] = len(names)
+    return moved
+
+
+def _check_round_trip(phase, trainer, fresh, ckpt_dir, steps, step_fn):
+    """The newest checkpoint restored into ``fresh`` on the card: every
+    tensor bitwise equal; then one more step from each (``step_fn``,
+    cuDNN deterministic), bitwise equal."""
+    import torch
+
+    from objgan_tpu_torch.core.checkpoint import CheckpointManager
+
+    check(CheckpointManager(ckpt_dir).restore_latest(fresh) == steps,
+          f"{phase}: the newest checkpoint did not restore")
+    diff = _differing(trainer.state_dict(), fresh.state_dict())
+    check(not diff, f"{phase}: restored state differs at {diff[:3]}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        step_fn(trainer)
+        step_fn(fresh)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = _differing(trainer.state_dict(), fresh.state_dict())
+    check(not diff, f"{phase}: a step from the restored trainer differs at "
+          f"{diff[:3]}")
+    return len(trainer.state_dict())
+
+
+def _feed_ms(feed, n=5):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        next(feed)
+        times.append(1000.0 * (time.perf_counter() - t0))
+    return times
+
+
+def phase_box(out_dir):
+    """Stage A at the width of ``Config()`` (the reference's config #1) on
+    the manifest's layouts through ``cli.train_box``, what ``python -m
+    objgan_tpu_torch.box_train`` runs; its checkpoint round trip;
+    ``cli.sample_box`` (temperature, and beam search at K = 3) and
+    ``cli.eval_box``. Its checkpoints go to ``out_dir`` under
+    ``coco_objgan`` for phase ``compose``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import Config
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.train.box import BoxTrainer
+
+    cfg = Config().merged({"OUTPUT_DIR": out_dir, "CONFIG_NAME": "coco_objgan",
+                           "DATA_DIR": os.path.join(ROOT, DATA_DIR)})
+    manifest = os.path.join(ROOT, MANIFEST)
+    feed, n_records, vocab = build_feed(cfg, manifest, with_images=False,
+                                        with_masks=False)
+    cfg, steps = cli.apply_epoch_schedule(cfg, n_records, BOX_STEPS)
+    seed = BoxTrainer(cfg).init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED))
+    before = {k: v.detach().clone() for k, v in seed.named_parameters()}
+    b = cfg.BOX
+    log("box", f"Config() (config #1): batch {cfg.TRAIN.BATCH_SIZE}, "
+        f"RNN_SIZE {b.RNN_SIZE}, ATT_HID_SIZE {b.ATT_HID_SIZE}, "
+        f"INPUT_ENCODING_SIZE {b.INPUT_ENCODING_SIZE}, GMM "
+        f"{cfg.OBJ.GMM_COMPONENTS} x {cfg.OBJ.GMM_MODE}, MAX_OBJECTS "
+        f"{cfg.OBJ.MAX_OBJECTS}, VOCAB_SIZE {cfg.TEXT.VOCAB_SIZE}; "
+        f"{sum(p.numel() for p in seed.parameters()) / 1e6:.2f} M params; "
+        f"{MANIFEST} layouts: {n_records} records, vocabulary {len(vocab)}")
+    del seed
+    trainer, seen, counts, _, wall_s, peak_gb = _run_stage(
+        "box", cli.train_box, cfg, feed, steps)
+    check(counts == (0, 0, 0), f"Stage A launched kernels {counts}")
+    moved = _check_moved("box", before, trainer, ("model.encoder.",
+                                                  "model.decoder."))
+    ckpt_dir = os.path.join(out_dir, "coco_objgan_box", "ckpt")
+    batch = cli.to_device(next(feed), "cuda")
+    n_tensors = _check_round_trip(
+        "box", trainer, BoxTrainer(cfg).init_state(
+            torch.Generator().manual_seed(1)).cuda(), ckpt_dir, steps,
+        lambda tr: tr.train_step(batch))
+    times = [1000.0 / m.pop("steps_per_sec") for m in seen]
+    step_ms = statistics.median(times[1:])
+    log("box", f"cli.train_box took {steps} steps on the manifest's layouts "
+        f"in {wall_s:.1f} s (set-up included); label_loss and box_nll "
+        f"finite at every step (last {seen[-1]['label_loss']:.4g}, "
+        f"{seen[-1]['box_nll']:.4g}); every parameter tensor moved "
+        f"({moved}); no kernel launched (Stage A has no GroupNorm)")
+    log("box", "synchronised ms per step (train loop's steps_per_sec): "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; median of steps 2-"
+        f"{steps} {step_ms:.1f} ms "
+        f"({cfg.TRAIN.BATCH_SIZE * 1000.0 / step_ms:.1f} layouts/s); peak "
+        f"memory allocated {peak_gb:.2f} GiB; host feed (layouts only) ms "
+        f"per batch: " + ", ".join(
+            f"{t:.2f}" for t in _feed_ms(feed)))
+    log("box", f"checkpoint at step {steps} restored into a fresh trainer on "
+        f"the card: all {n_tensors} tensors bitwise equal; one more step from "
+        f"the live and the restored trainer: bitwise equal")
+    prof_wall, busy_ms, spans = _device_profile(
+        lambda: trainer.train_step(batch))
+    log("box", f"one device step on a resident batch under torch.profiler: "
+        f"wall {prof_wall:.1f} ms, device busy {busy_ms:.1f} ms (share "
+        f"{busy_ms / prof_wall:.3f}), {len(spans)} device activities")
+    del trainer
+    # sampling and evaluation from the stage's checkpoint (now at step + 1
+    # only in memory; the newest on disk is step ``steps``)
+    ids, lens = vocab.encode_batch(CAPTIONS[:16], cfg.TEXT.WORDS_NUM)
+    text = io.StringIO()
+    layouts = {}
+    with contextlib.redirect_stdout(text):
+        for mode, bcfg in (("temperature", cfg),
+                           ("beam 3", cfg.merged({"BOX": {"BEAM_SIZE": 3}}))):
+            t0 = time.perf_counter()
+            layouts[mode] = cli.sample_box(bcfg, ids, lens, device="cuda")
+            layouts[mode]["ms"] = 1000.0 * (time.perf_counter() - t0)
+        eval_feed, _, _ = build_feed(cfg.merged({"TRAIN": {"FLAG": False}}),
+                                     manifest, with_images=False)
+        metrics = cli.eval_box(cfg, eval_feed, num_batches=2, device="cuda")
+    check(text.getvalue().count(f"restored the box checkpoint at step "
+                                f"{steps}") == 3,
+          "sample_box / eval_box did not restore the checkpoint")
+    for mode, lay in layouts.items():
+        labels = torch.tensor(lay["labels"])
+        boxes = torch.tensor(lay["boxes"])
+        valid = torch.tensor(lay["obj_valid"])
+        check(labels.shape == (16, cfg.BOX.MAX_SEQ_LENGTH)
+              and bool(((labels >= 0) & (labels < cfg.OBJ.NUM_CLASSES)).all())
+              and bool(((boxes >= 0) & (boxes <= 1)).all())
+              and bool((valid[:, 1:] <= valid[:, :-1]).all()),
+              f"sample_box ({mode}) returned a malformed layout")
+        log("box", f"cli.sample_box, {mode}: 16 captions -> "
+            f"{int(valid.sum())} objects, labels in range, boxes in [0, 1], "
+            f"validity a prefix; {lay['ms']:.1f} ms with set-up")
+    check(all(math.isfinite(v) for v in metrics.values()),
+          "non-finite box evaluation metrics")
+    log("box", "cli.eval_box on 2 batches: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in sorted(metrics.items())))
+    return {"ms": step_ms, "peak_gb": peak_gb}
+
+
+def phase_shape(out_dir):
+    """Stage B at the width of ``cfg/shape_coco.yml`` (config #2) on the
+    manifest's layouts and masks through ``cli.train_shape``, what
+    ``python -m objgan_tpu_torch.shape_main`` runs: K1 launched 11 times a
+    step (G's 5 GroupNorms, D's 2 on the real, the detached fake and the
+    fake masks) under autograd; the checkpoint round trip; the host feed
+    and the device step apart; ``cli.eval_shape``. Its checkpoints go to
+    ``out_dir`` under ``coco_objgan`` for phase ``compose``."""
+    import collections
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
+    from objgan_tpu_torch.train.common import step_generator
+
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "shape_coco.yml")).merged(
+        {"OUTPUT_DIR": out_dir, "CONFIG_NAME": "coco_objgan",
+         "DATA_DIR": os.path.join(ROOT, DATA_DIR)})
+    manifest = os.path.join(ROOT, MANIFEST)
+    feed, n_records, _ = build_feed(cfg, manifest, with_images=False)
+    cfg, steps = cli.apply_epoch_schedule(cfg, n_records, SHAPE_STEPS)
+    seed = ShapeTrainer(cfg).init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED))
+    before = {k: v.detach().clone() for k, v in seed.named_parameters()}
+    s = cfg.SHAPE
+    log("shape", f"cfg/shape_coco.yml (config #2): batch "
+        f"{cfg.TRAIN.BATCH_SIZE} x {cfg.OBJ.MAX_OBJECTS} objects, "
+        f"{cfg.OBJ.SHAPE_SIZE} px masks, GF_DIM {s.GF_DIM}, DF_DIM "
+        f"{s.DF_DIM}, HIDDEN_DIM {s.HIDDEN_DIM}, PERCEPTUAL {s.PERCEPTUAL}, "
+        f"fp32; M params: G "
+        f"{sum(p.numel() for p in seed.g.parameters()) / 1e6:.2f}, D "
+        f"{sum(p.numel() for p in seed.d.parameters()) / 1e6:.2f}; "
+        f"{MANIFEST} layouts and masks: {n_records} records")
+    del seed
+    trainer, seen, counts, calls, wall_s, peak_gb = _run_stage(
+        "shape", cli.train_shape, cfg, feed, steps, (FusedGroupNorm,))
+    k1 = counts[0]
+    check(k1 == 11 * steps and k1 == calls[FusedGroupNorm],
+          f"K1 launched {k1} times for {calls[FusedGroupNorm]} GroupNorm "
+          f"calls in {steps} steps (expected 11 per step)")
+    check(counts[1:] == (0, 0), f"Stage B launched K2/K3 {counts[1:]}")
+    moved = _check_moved("shape", before, trainer, ("g.", "d."))
+    ckpt_dir = os.path.join(out_dir, "coco_objgan_shape", "ckpt")
+    batch = cli.to_device(next(feed), "cuda")
+    z = shape_noise(cfg, cfg.TRAIN.BATCH_SIZE, step_generator(
+        cfg.RNG_SEED, 999, "cuda"), "cuda")
+    n_tensors = _check_round_trip(
+        "shape", trainer, ShapeTrainer(cfg).init_state(
+            torch.Generator().manual_seed(1)).cuda(), ckpt_dir, steps,
+        lambda tr: tr.train_step(batch, z))
+    times = [1000.0 / m.pop("steps_per_sec") for m in seen]
+    loop_ms = statistics.median(times[1:])
+    log("shape", f"cli.train_shape took {steps} steps on the manifest feed "
+        f"in {wall_s:.1f} s (set-up included); shape_d and shape_g finite at "
+        f"every step (last {seen[-1]['shape_d']:.4g}, "
+        f"{seen[-1]['shape_g']:.4g}); every parameter tensor moved "
+        f"({moved})")
+    log("shape", f"launches in {steps} steps: K1 {k1} (= "
+        f"{calls[FusedGroupNorm]} GroupNorm calls, {k1 // steps} per step)")
+    log("shape", "synchronised ms per step of the loop (host feed + device "
+        "step; steps_per_sec): " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; median of steps 2-{steps} {loop_ms:.1f} ms; peak memory "
+        f"allocated {peak_gb:.2f} GiB")
+    log("shape", f"checkpoint at step {steps} restored into a fresh trainer "
+        f"on the card: all {n_tensors} tensors (weights, Adam moments, "
+        f"label table, step) bitwise equal; one more step from the live and "
+        f"the restored trainer (same batch and noise, cuDNN deterministic): "
+        f"bitwise equal")
+    # the device step on a resident batch, and the host feed, apart
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, z)
+        torch.cuda.synchronize()
+        step_ms.append(1000.0 * (time.perf_counter() - t0))
+    feed_ms = _feed_ms(feed)
+    device_ms = statistics.median(step_ms[1:])
+    prof_wall, busy_ms, spans = _device_profile(
+        lambda: trainer.train_step(batch, z))
+    groups = collections.defaultdict(float)
+    for a, b_, name in spans:
+        groups["K1 GroupNorm" if "gn_fused_kernel" in name else
+               "conv / matmul" if re.search(
+                   "conv|gemm|xmma|cudnn|cutlass|wgrad|dgrad|fprop|sm90",
+                   name, re.I) else
+               "other (elementwise, reductions, copies)"] += (b_ - a) / 1e3
+    log("shape", "device step on a resident batch, synchronised ms: "
+        + ", ".join(f"{t:.1f}" for t in step_ms) + f"; median after the "
+        f"first {device_ms:.1f} ms")
+    log("shape", f"one device step under torch.profiler: wall "
+        f"{prof_wall:.1f} ms, device busy {busy_ms:.1f} ms (share "
+        f"{busy_ms / prof_wall:.3f}), {len(spans)} device activities; "
+        "device ms by group: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+    log("shape", f"host feed (CocoFeed, one thread: {cfg.TRAIN.BATCH_SIZE} "
+        f"records' layouts, {cfg.TRAIN.BATCH_SIZE * cfg.OBJ.MAX_OBJECTS} "
+        f"polygon masks rasterised at {cfg.OBJ.SHAPE_SIZE} px, captions) ms "
+        f"per batch: " + ", ".join(f"{t:.1f}" for t in feed_ms)
+        + f"; median {statistics.median(feed_ms):.1f}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        eval_feed, _, _ = build_feed(cfg.merged({"TRAIN": {"FLAG": False}}),
+                                     manifest, with_images=False)
+        metrics = cli.eval_shape(cfg, eval_feed, num_batches=2,
+                                 device="cuda")
+    check(f"restored the shape checkpoint at step {steps}" in text.getvalue(),
+          "eval_shape did not restore the checkpoint")
+    check(all(math.isfinite(v) for v in metrics.values())
+          and metrics["n_objects"] > 0, "bad shape evaluation metrics")
+    log("shape", "cli.eval_shape on 2 batches: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in sorted(metrics.items())))
+    return trainer, batch, z, {"k1": k1, "ms": loop_ms, "device_ms": device_ms,
+                               "peak_gb": peak_gb}
+
+
+def phase_shape_k1(trainer, batch, z):
+    """Every K1 call of one more Stage-B step against the twin, timed."""
+    import torch
+
+    records, hooks = _record_gn(trainer)
+    try:
+        trainer.train_step(batch, z)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(records) == 11, f"one Stage-B step made {len(records)} K1 "
+          f"calls")
+    with torch.no_grad():
+        return _check_k1("shape_k1", records, "Stage-B step")
+
+
+def phase_small_shape():
+    """A tiny fp32 Stage-B step, GPU (K1 under autograd) against CPU
+    (twins): metrics and every gradient."""
+    rose = _small_step("small_shape", "shape", "Stage-B step (K1)",
+                       _k1_count)
+    check(rose == [11], f"K1 launches on the GPU: {rose}")
+
+
+def phase_compose(out_dir, vocab):
+    """The stages trained in phases ``train`` (Stage C), ``box`` and
+    ``shape``, all under ``out_dir`` as ``coco_objgan``, served by
+    ``run_serve`` at ``cfg/eval_coco.yml`` with ``output_dir``: every stage
+    restored, none untrained; the first batch's layout, masks and image
+    equal ``cli.sample_box``'s, the restored Stage-B sampler's and the
+    restored Stage-C sampler's (``sample_gan``'s) for the same noise."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.checkpoint import CheckpointManager
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.ops import groupnorm
+    from objgan_tpu_torch.pipeline_e2e import ObjGanPipeline
+    from objgan_tpu_torch.serving import run_serve
+    from objgan_tpu_torch.train.shape import ShapeTrainer
+
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "eval_coco.yml")).merged(
+        {"OUTPUT_DIR": out_dir})
+    recorded = []
+    generate = ObjGanPipeline.generate
+
+    def recording(self, captions, cap_lens, noise):
+        out = generate(self, captions, cap_lens, noise)
+        recorded.append((self, captions, cap_lens, noise, out))
+        return out
+
+    reqs = [{"id": i, "caption": c} for i, c in enumerate(CAPTIONS)]
+    responses = []
+    out, err = io.StringIO(), io.StringIO()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ObjGanPipeline.generate = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            torch.cuda.synchronize()
+            _reset_counts()
+            stats = run_serve(cfg, vocab, reqs, tmp, batch_size=16,
+                              emit=responses.append, device="cuda",
+                              output_dir=out_dir)
+            torch.cuda.synchronize()
+            launches = groupnorm.launches
+            check(all(r["image"] and os.path.getsize(r["image"]) > 0
+                      for r in responses), "missing PNGs")
+    finally:
+        ObjGanPipeline.generate = generate
+    text = out.getvalue()
+    for name in ("box", "shape", "gan"):
+        check(f"restored the {name} stage from" in text,
+              f"run_serve did not restore the {name} stage")
+    check("UNTRAINED" not in err.getvalue(),
+          "run_serve warned of an untrained stage: " + err.getvalue()[-500:])
+    check(len(responses) == len(CAPTIONS) and stats["batches"] == 3,
+          f"{len(responses)} responses in {stats['batches']} batches")
+    pipe, ids, lens, noise, served = recorded[0]
+    n_gn = sum(isinstance(m, FusedGroupNorm) for m in pipe.modules())
+    check(launches == 3 * n_gn, f"K1 launched {launches} times for 3 "
+          f"batches x {n_gn} GroupNorm layers")
+    for img in served["images"]:
+        check(bool(torch.isfinite(img).all()), "non-finite served image")
+    # the same batch through each stage's own sampler, from its checkpoint
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        layout = cli.sample_box(cfg, ids.cpu().numpy(), lens.cpu().numpy(),
+                                use_beam=False, device="cuda",
+                                noise={k: noise[k] for k in (
+                                    "label_gumbel", "comp_gumbel",
+                                    "box_normal")})
+        shape = ShapeTrainer(cfg).cuda()
+        CheckpointManager(os.path.join(out_dir, "coco_objgan_shape",
+                                       "ckpt")).restore_latest(shape)
+        gan = cli._gan_trainer(cfg, "cuda")
+        CheckpointManager(os.path.join(out_dir, "coco_objgan_gan",
+                                       "ckpt")).restore_latest(gan)
+    torch.backends.cudnn.deterministic = True
+    try:
+        masks = shape.sample(served["boxes"], served["labels"],
+                             served["obj_valid"], noise["shape_z"])
+        batch = {"captions": ids, "cap_lens": lens,
+                 "labels": served["labels"], "boxes": served["boxes"],
+                 "shapes": served["masks"],
+                 "obj_valid": served["obj_valid"]}
+        images = gan.sample(batch, noise["z"], noise["ca_eps"])["images"]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the served layout keeps the first OBJ.MAX_OBJECTS decode steps
+    layout = {k: [row[:cfg.OBJ.MAX_OBJECTS] for row in v]
+              for k, v in layout.items()}
+    errs = {
+        "labels": int(layout["labels"] != served["labels"].tolist()),
+        "obj_valid": int(layout["obj_valid"] != served["obj_valid"].tolist()),
+        "boxes": float((torch.tensor(layout["boxes"], device="cuda")
+                        - served["boxes"]).abs().max()),
+        "masks": float((masks - served["masks"]).abs().max()),
+        "images": max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(images, served["images"])),
+    }
+    check(all(v == 0 for v in errs.values()),
+          f"the served batch differs from the stages' own samplers: {errs}")
+    del shape, gan
+    n_obj = int(served["obj_valid"].sum())
+    log("compose", f"run_serve at cfg/eval_coco.yml with output_dir: the box "
+        f"(step {BOX_STEPS}), shape (step {SHAPE_STEPS}) and gan (step "
+        f"{TRAIN_STEPS}) checkpoints restored, no untrained warning; "
+        f"{stats['requests']} requests in {stats['batches']} batches, "
+        f"K1 launches {launches} = 3 batches x {n_gn} GroupNorm layers")
+    log("compose", f"first batch ({n_obj} objects): layout equal to "
+        f"cli.sample_box's, masks to the restored ShapeTrainer.sample's, "
+        f"images to the restored GanTrainer.sample's (sample_gan) for the "
+        f"same noise, to the bit (cuDNN deterministic)")
 
 
 def main():
@@ -1382,7 +1827,10 @@ def main():
     phase_small()
     del pipe
     torch.cuda.empty_cache()
-    train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
+    # the stages' checkpoints, read back by phase compose
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_out_")
+    train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml")
+                              ).merged({"OUTPUT_DIR": out_dir})
     trainer, train = phase_train(train_cfg)
     phase_train_profile(train_cfg, trainer)
     gn_calls, fwd, bwd, pad = _record_train_step(train_cfg, trainer)
@@ -1402,19 +1850,28 @@ def main():
     del damsm_trainer, batch, keep
     torch.cuda.empty_cache()
     phase_small_damsm()
+    phase_box(out_dir)
+    shape_trainer, batch, z, shape = phase_shape(out_dir)
+    k1_shape_err, k1_shape = phase_shape_k1(shape_trainer, batch, z)
+    del shape_trainer, batch, z
+    torch.cuda.empty_cache()
+    phase_small_shape()
+    phase_compose(out_dir, vocab)
+    shutil.rmtree(out_dir, ignore_errors=True)
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(k1_err, k1_train_err, k1_damsm_err),
+        "max_abs_err": max(k1_err, k1_train_err, k1_damsm_err,
+                           k1_shape_err),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": k1["library_ms"],
         "regimes": k1["regimes"], "ms_10_per_graph": k1["ms_10_per_graph"],
         "library_ms_10_per_graph": k1["library_ms_10_per_graph"],
-        # K1 runs on three paths: the keys above are per served batch (the
+        # K1 runs on four paths: the keys above are per served batch (the
         # error the largest of the paths'), "train" per Stage-C train step,
-        # "damsm" per DAMSM step; the library time takes two calls
-        # (F.group_norm, F.glu) for a GN+GLU
+        # "damsm" per DAMSM step, "shape" per Stage-B step; the library
+        # time takes two calls (F.group_norm, F.glu) for a GN+GLU
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "library_ms": r["library_ms"], "regimes": r["regimes"],
@@ -1422,7 +1879,8 @@ def main():
                   "library_ms_10_per_graph": r["library_ms_10_per_graph"]}
            for path, launched, err, r in (
                ("train", train["k1"], k1_train_err, k1_train),
-               ("damsm", damsm_k1_launches, k1_damsm_err, k1_damsm))},
+               ("damsm", damsm_k1_launches, k1_damsm_err, k1_damsm),
+               ("shape", shape["k1"], k1_shape_err, k1_shape))},
     }]
     for name, replaces, key in (("roi_align_fwd", K2_REPLACES, "K2"),
                                 ("roi_align_bwd", K3_REPLACES, "K3")):

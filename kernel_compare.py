@@ -113,7 +113,9 @@ def record_damsm_step():
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml")
-                            ).merged({"OUTPUT_DIR": tmp})
+                            ).merged({"OUTPUT_DIR": tmp,
+                                      "DATA_DIR": os.path.join(ROOT,
+                                                               cs.DATA_DIR)})
         feed, _, _ = build_feed(cfg, os.path.join(ROOT, cs.MANIFEST),
                                 with_masks=False)
         with contextlib.redirect_stdout(io.StringIO()):

@@ -1,0 +1,33 @@
+"""Stage-A training entry point of the PyTorch port, mirroring
+``box_generation/train.py``:
+
+    python -m objgan_tpu_torch.box_train --cfg <yml> \
+        [--manifest data_proc2k/manifest.json] --max_steps N [--device cpu]
+
+Teacher-forced training of the box generator on the manifest's captions
+and layouts (no images, no masks are read; synthetic batches without
+``--manifest``): metric lines, keep-3 checkpoints and the metrics CSV under
+``OUTPUT_DIR/<CONFIG_NAME>_box``, resumed from its newest checkpoint. Runs
+on the CUDA device unless ``--device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+
+def main(argv=None) -> None:
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.box_opts import parse_opts, to_config
+    from objgan_tpu_torch.data.feed import build_feed
+
+    args = parse_opts(argv)
+    cfg = to_config(args)
+    # Stage A reads captions and layouts only: no PNG decode, no masks
+    feed, n_records, _ = build_feed(cfg, args.manifest, args.captions_pickle,
+                                    with_images=False, with_masks=False)
+    cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
+    cli.train_box(cfg, feed, max_steps=max_steps, device=args.device,
+                  log_every=args.log_every)
+
+
+if __name__ == "__main__":
+    main()

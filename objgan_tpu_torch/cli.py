@@ -1,10 +1,11 @@
-"""Training and sampling runners behind the port's entry points: DAMSM
-pretraining (``python -m objgan_tpu_torch.pretrain_damsm``) and Stage C,
-train or sample (``python -m objgan_tpu_torch.gan_main``). Port of
-``objgan_tpu/cli.py``: ``_out_dir``, ``_already_trained``,
-``apply_epoch_schedule``, ``_run_loop`` (one device, one step per call),
-``load_damsm_encoders``, ``pretrain_damsm``, ``train_gan`` and
-``sample_gan``.
+"""Training, sampling and evaluation runners behind the port's entry
+points: DAMSM pretraining (``python -m objgan_tpu_torch.pretrain_damsm``),
+Stage A (``box_train``, ``box_sample``), Stage B (``shape_main``) and
+Stage C, train or sample (``gan_main``). Port of ``objgan_tpu/cli.py``:
+``_out_dir``, ``_already_trained``, ``apply_epoch_schedule``, ``_run_loop``
+(one device, one step per call), ``load_damsm_encoders``,
+``pretrain_damsm``, ``train_gan``, ``sample_gan``, ``train_box``,
+``sample_box``, ``eval_box``, ``train_shape`` and ``eval_shape``.
 
 Each stage writes under ``OUTPUT_DIR/<CONFIG_NAME>_<stage>``: its
 checkpoints (``ckpt/<step>``, keep-3), ``<stage>_metrics.csv`` and the
@@ -13,7 +14,8 @@ noise comes from a generator seeded from (``RNG_SEED``, step)
 (``train/common.py::step_generator``), as do the synthetic batches when no
 manifest feed is given, so a resumed run equals an unbroken one on them. A
 manifest feed starts its shuffle over on a resume, as the JAX package's
-does.
+does. A feed that ends stops the loop there, and the stage's last step is
+saved.
 
 Everything runs on ``device`` ("cuda" unless the caller says otherwise);
 nothing moves to the CPU on its own.
@@ -35,9 +37,11 @@ from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.metrics import MetricsWriter
 from objgan_tpu_torch.core.precision import true_fp32
 from objgan_tpu_torch.data.synthetic import synthetic_batch
+from objgan_tpu_torch.train.box import BoxTrainer, box_noise, ss_flips
 from objgan_tpu_torch.train.common import Trainer, step_generator
 from objgan_tpu_torch.train.damsm import DamsmTrainer
 from objgan_tpu_torch.train.gan import GanTrainer, train_noise
+from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
 
 # step_generator streams: a step's noise, a synthetic batch, a snapshot's
 _NOISE, _DATA, _SNAPSHOT = 0, 1, 2
@@ -99,12 +103,14 @@ def to_device(batch: Dict, device) -> Dict:
     return {k: move(v) for k, v in batch.items()}
 
 
-def synthetic_feed(cfg: Config, device, start: int = 0) -> Iterator[Dict]:
+def synthetic_feed(cfg: Config, device, start: int = 0,
+                   with_images: bool = True) -> Iterator[Dict]:
     """Endless synthetic COCO-shaped batches on ``device``; batch i is drawn
     from (RNG_SEED, i), starting at ``start``."""
     for i in itertools.count(start):
         yield synthetic_batch(cfg, step_generator(cfg.RNG_SEED, i, device,
-                                                  _DATA))
+                                                  _DATA),
+                              with_images=with_images)
 
 
 def _finest_scale_only(feed: Iterator[Dict]) -> Iterator[Dict]:
@@ -126,10 +132,12 @@ def _run_loop(cfg: Config, trainer: Trainer,
               step_fn: Callable[[Dict, int], Dict], feed: Iterator[Dict],
               writer: MetricsWriter, manager: CheckpointManager,
               max_steps: int, snapshot_hook=None, log_every: int = 50):
-    """Step loop from the trainer's own (restored) step to ``max_steps``.
-    ``step_fn(batch, step)`` takes one step and returns its metrics. A
+    """Step loop from the trainer's own (restored) step to ``max_steps``,
+    or until ``feed`` ends. ``step_fn(batch, step)`` takes one step and
+    returns its metrics. A
     metric row (CSV, and stdout every ``log_every`` steps) at the first
-    step, every ``log_every`` steps and at the last, with
+    step, every ``log_every`` steps and at the last (also when the feed
+    ends first), with
     ``steps_per_sec`` over the steps since the previous row, synchronised.
     A checkpoint and a snapshot every ``SNAPSHOT_STEPS`` steps (500 when
     unset), and a checkpoint at the end; a step already saved is not
@@ -137,21 +145,27 @@ def _run_loop(cfg: Config, trainer: Trainer,
     step = trainer.step
     last_logged, t_last, logged_any = step, time.monotonic(), False
     snap_every = cfg.TRAIN.SNAPSHOT_STEPS or 500
-    while step < max_steps:
-        metrics = step_fn(next(feed), step)
+
+    def log(metrics):
+        nonlocal last_logged, t_last, logged_any
+        vals = {k: float(v) for k, v in metrics.items()}  # synchronises
+        now = time.monotonic()
+        vals["steps_per_sec"] = (step - last_logged) / max(now - t_last, 1e-9)
+        last_logged, t_last, logged_any = step, now, True
+        writer.write(step, vals)
+
+    for batch in itertools.islice(feed, max(max_steps - step, 0)):
+        metrics = step_fn(batch, step)
         step = trainer.step
         if (step - last_logged >= log_every or not logged_any
                 or step == max_steps):
-            vals = {k: float(v) for k, v in metrics.items()}  # synchronises
-            now = time.monotonic()
-            vals["steps_per_sec"] = (step - last_logged) / max(now - t_last,
-                                                               1e-9)
-            last_logged, t_last, logged_any = step, now, True
-            writer.write(step, vals)
+            log(metrics)
         if step % snap_every == 0:
             manager.save(step, trainer)
             if snapshot_hook is not None:
                 snapshot_hook(step)
+    if step != last_logged:  # the feed ended between rows
+        log(metrics)
     manager.save(step, trainer)
     writer.close()
 
@@ -280,8 +294,10 @@ def sample_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     if feed is None:
         feed = synthetic_feed(cfg, device)
     n = 0
-    for i in range(num_batches):
-        batch = to_device(next(feed), device)
+    for i, batch in enumerate(feed):
+        if i >= num_batches:
+            break
+        batch = to_device(batch, device)
         noise = train_noise(cfg, batch["captions"].shape[0],
                             step_generator(cfg.RNG_SEED, i, device, _NOISE),
                             device)
@@ -354,3 +370,182 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                                                          log_every),
               manager, max_steps, snapshot, log_every)
     return trainer
+
+
+# -- Stage A (boxes) and Stage B (masks) --------------------------------------
+
+
+def _stage_trainer(cfg: Config, trainer: Trainer, device) -> Trainer:
+    """``trainer`` with fresh weights drawn on the CPU from ``RNG_SEED``
+    (a seed gives the same weights on every device), on ``device``."""
+    true_fp32()
+    return trainer.init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED)).to(device)
+
+
+def _restore_for_sampling(cfg: Config, trainer: Trainer, stage: str,
+                          what: str) -> Optional[int]:
+    """Restore the stage's newest checkpoint into ``trainer``; warn that
+    the weights are untrained when there is none."""
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_{stage}",
+                            "ckpt")
+    restored = (CheckpointManager(ckpt_dir).restore_latest(trainer)
+                if latest_step_in(ckpt_dir) is not None else None)
+    if restored is None:
+        print(f"WARNING: no {stage} checkpoint under {ckpt_dir} — {what} "
+              "with UNTRAINED random weights")
+    else:
+        print(f"restored the {stage} checkpoint at step {restored}")
+    return restored
+
+
+def train_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+              max_steps: int = 10 ** 9, device="cuda",
+              log_every: int = 50) -> Optional[BoxTrainer]:
+    """Stage-A teacher-forced training on ``feed`` (a layouts-only
+    manifest feed; synthetic batches when None), resumed from the stage's
+    newest checkpoint. With ``BOX.SCHEDULED_SAMPLING_PROB`` > 0 a step's
+    flips are drawn from (RNG_SEED, step). Returns the trainer, or None
+    when the checkpoints already reach ``max_steps``."""
+    device = torch.device(device)
+    out = _out_dir(cfg, "box")
+    if _already_trained(out, "box", max_steps):
+        return None
+    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    manager = CheckpointManager(os.path.join(out, "ckpt"))
+    restored = manager.restore_latest(trainer)
+    if restored is not None:
+        print(f"resumed from step {restored}")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
+
+    def step_fn(batch, step):
+        batch = to_device(batch, device)
+        b, o = batch["labels"].shape
+        flips = ss_flips(cfg, o, b, step_generator(cfg.RNG_SEED, step,
+                                                   device, _NOISE), device)
+        return trainer.train_step(batch, flips)
+
+    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "box",
+                                                         log_every),
+              manager, max_steps, log_every=log_every)
+    return trainer
+
+
+def sample_box(cfg: Config, captions, cap_lens,
+               out_path: Optional[str] = None,
+               use_beam: Optional[bool] = None, device="cuda",
+               noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+    """Caption ids (B, T) and lengths (B,) -> layouts with the box
+    generator of this config's newest Stage-A checkpoint: beam search when
+    ``use_beam`` (default: ``BOX.BEAM_SIZE`` > 1; mixture-mean boxes),
+    else temperature sampling with ``noise`` (``train/box.py::box_noise``;
+    by default drawn from (RNG_SEED, 0)). Returns, and with ``out_path``
+    writes as JSON, ``{"labels", "boxes", "obj_valid"}`` as lists."""
+    import json
+
+    device = torch.device(device)
+    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    _restore_for_sampling(cfg, trainer, "box", "sampling layouts")
+    caps = torch.as_tensor(np.array(captions)).long().to(device)
+    lens = torch.as_tensor(np.array(cap_lens)).long().to(device)
+    if use_beam is None:
+        use_beam = cfg.BOX.BEAM_SIZE > 1
+    if use_beam:
+        out = trainer.beam_sample(caps, lens)
+    else:
+        if noise is None:
+            noise = box_noise(cfg, caps.shape[0], step_generator(
+                cfg.RNG_SEED, 0, device, _NOISE), device)
+        out = trainer.sample(caps, lens, noise)
+    layout = {k: _numpy(out[k]).tolist()
+              for k in ("labels", "boxes", "obj_valid")}
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(layout, f)
+    return layout
+
+
+def eval_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+             num_batches: int = 10, device="cuda") -> Dict[str, float]:
+    """Stage-A evaluation of this config's newest checkpoint on
+    ``num_batches`` batches of ``feed`` (synthetic when None): held-out
+    teacher-forced NLL and layout statistics, temperature sampling (batch
+    i's noise from (RNG_SEED, i)) and beam search side by side
+    (``sample_*`` and ``beam_*``)."""
+    from objgan_tpu_torch.utils import box_eval
+
+    device = torch.device(device)
+    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    _restore_for_sampling(cfg, trainer, "box", "evaluating")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, with_images=False)
+    batches = [to_device(b, device)
+               for b in itertools.islice(feed, num_batches)]
+    noises = [box_noise(cfg, b["captions"].shape[0], step_generator(
+        cfg.RNG_SEED, i, device, _NOISE), device)
+        for i, b in enumerate(batches)]
+    metrics = box_eval.heldout_nll(trainer, batches)
+    stats = box_eval.layout_stats(trainer, batches, cfg.OBJ.NUM_CLASSES,
+                                  noises)
+    beam = box_eval.layout_stats(trainer, batches, cfg.OBJ.NUM_CLASSES,
+                                 use_beam=True)
+    metrics.update({f"sample_{k}": v for k, v in stats.items()})
+    metrics.update({f"beam_{k}": v for k, v in beam.items()})
+    for k, v in sorted(metrics.items()):
+        print(f"{k}: {v:.4f}")
+    return metrics
+
+
+def train_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+                max_steps: int = 10 ** 9, device="cuda",
+                log_every: int = 50) -> Optional[ShapeTrainer]:
+    """Stage-B training on ``feed`` (a manifest feed with masks and no
+    images; synthetic batches when None), resumed from the stage's newest
+    checkpoint; a step's noise is drawn from (RNG_SEED, step). Returns the
+    trainer, or None when the checkpoints already reach ``max_steps``."""
+    device = torch.device(device)
+    out = _out_dir(cfg, "shape")
+    if _already_trained(out, "shape", max_steps):
+        return None
+    trainer = _stage_trainer(cfg, ShapeTrainer(cfg), device)
+    manager = CheckpointManager(os.path.join(out, "ckpt"))
+    restored = manager.restore_latest(trainer)
+    if restored is not None:
+        print(f"resumed from step {restored}")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
+
+    def step_fn(batch, step):
+        batch = to_device(batch, device)
+        z = shape_noise(cfg, batch["labels"].shape[0], step_generator(
+            cfg.RNG_SEED, step, device, _NOISE), device)
+        return trainer.train_step(batch, z)
+
+    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "shape",
+                                                         log_every),
+              manager, max_steps, log_every=log_every)
+    return trainer
+
+
+def eval_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+               num_batches: int = 10, device="cuda") -> Dict[str, float]:
+    """Stage-B evaluation of this config's newest checkpoint: held-out mask
+    IoU, pixel accuracy and area ratio on ``num_batches`` batches of
+    ``feed`` (synthetic when None); batch i's noise from (RNG_SEED, i)."""
+    from objgan_tpu_torch.utils import shape_eval
+
+    device = torch.device(device)
+    trainer = _stage_trainer(cfg, ShapeTrainer(cfg), device)
+    _restore_for_sampling(cfg, trainer, "shape", "evaluating")
+    if feed is None:
+        feed = synthetic_feed(cfg, device, with_images=False)
+    batches = [to_device(b, device)
+               for b in itertools.islice(feed, num_batches)]
+    zs = [shape_noise(cfg, b["labels"].shape[0], step_generator(
+        cfg.RNG_SEED, i, device, _NOISE), device)
+        for i, b in enumerate(batches)]
+    metrics = shape_eval.heldout_mask_metrics(trainer, batches, zs)
+    for k, v in sorted(metrics.items()):
+        print(f"{k}: {v:.4f}")
+    return metrics

@@ -14,7 +14,9 @@ imports JAX, so the rules are restated here):
   names and the JAX layout, single bias included.
 
 ``load_gan_state`` loads a whole Stage-C train state into the port's
-trainer, ``load_damsm_state`` a DAMSM pretraining state.
+trainer, ``load_damsm_state`` a DAMSM pretraining state (both with fresh
+optimisers), ``load_box_state`` and ``load_shape_state`` a Stage-A and a
+Stage-B state with their Adam moments and step.
 """
 
 from __future__ import annotations
@@ -109,3 +111,58 @@ def load_damsm_state(trainer: nn.Module, state) -> None:
     load_jax_params(trainer.text_enc, state.text_params)
     load_jax_params(trainer.img_enc, state.img_params)
     trainer.reset_optimizers()
+
+
+def _scale_by_adam(opt_state):
+    """optax's ScaleByAdamState (``count``, ``mu``, ``nu``) inside a
+    (possibly chained) optimiser state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _scale_by_adam(part)
+            if found is not None:
+                return found
+    return None
+
+
+def _load_adam(module: nn.Module, opt: torch.optim.Optimizer,
+               opt_state) -> None:
+    """optax Adam's ``count``, ``mu`` and ``nu`` of ``module``'s params
+    into ``opt``'s state (``step``, ``exp_avg``, ``exp_avg_sq``)."""
+    adam = _scale_by_adam(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the optimiser state")
+    mu, nu = jax_to_torch(adam.mu), jax_to_torch(adam.nu)
+    count = float(np.asarray(adam.count))
+    names = {p: n for n, p in module.named_parameters()}
+    for group in opt.param_groups:
+        for p in group["params"]:
+            name = names[p]
+            opt.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": torch.tensor(mu[name]).to(p),
+                "exp_avg_sq": torch.tensor(nu[name]).to(p)}
+
+
+def load_box_state(trainer: nn.Module, state) -> None:
+    """Load a JAX ``BoxTrainState`` (``params``, the clip+Adam ``opt``
+    state and ``step``) into a ``train.box.BoxTrainer``."""
+    trainer.reset_optimizers()
+    load_jax_params(trainer.model, state.params)
+    _load_adam(trainer.model, trainer.opt, state.opt)
+    trainer.step = int(np.asarray(state.step))
+
+
+def load_shape_state(trainer: nn.Module, state) -> None:
+    """Load a JAX ``ShapeTrainState`` (``g_params``, ``d_params``, their
+    Adam states, ``label_table`` and ``step``) into a
+    ``train.shape.ShapeTrainer``."""
+    trainer.reset_optimizers()
+    load_jax_params(trainer.g, state.g_params)
+    load_jax_params(trainer.d, state.d_params)
+    _load_adam(trainer.g, trainer.g_opt, state.g_opt)
+    _load_adam(trainer.d, trainer.d_opt, state.d_opt)
+    with torch.no_grad():
+        trainer.label_table.copy_(torch.tensor(np.asarray(state.label_table)))
+    trainer.step = int(np.asarray(state.step))

@@ -41,6 +41,30 @@ def latest_step_in(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def mismatch(want, saved) -> Optional[str]:
+    """What keeps the state dict ``saved`` from loading into a module whose
+    state dict is ``want`` (missing or unexpected keys, changed shapes), or
+    None when it fits."""
+    missing = sorted(set(want) - set(saved))
+    extra = sorted(set(saved) - set(want))
+    shapes = sorted(k for k in set(want) & set(saved)
+                    if tuple(want[k].shape) != tuple(saved[k].shape))
+    if not (missing or extra or shapes):
+        return None
+    return (f"missing keys {missing[:5]}, unexpected keys {extra[:5]}, "
+            f"shape changed at {shapes[:5]}")
+
+
+def load_latest(directory: str):
+    """(step, saved state dict on the CPU) of the newest checkpoint in
+    ``directory``, or ``(None, None)`` when there is none."""
+    step = latest_step_in(directory)
+    if step is None:
+        return None, None
+    path = os.path.join(directory, str(step), STATE_FILE)
+    return step, torch.load(path, map_location="cpu", weights_only=True)
+
+
 class CheckpointManager:
     """Keep-N step directories under ``directory`` (created here)."""
 
@@ -78,22 +102,16 @@ class CheckpointManager:
     def restore_latest(self, module: nn.Module) -> Optional[int]:
         """Load the newest step into ``module`` and return that step, or
         ``None`` when there is no checkpoint or it no longer matches."""
-        step = self.latest_step()
+        step, saved = load_latest(self.directory)
         if step is None:
             return None
         path = os.path.join(self.directory, str(step), STATE_FILE)
-        saved = torch.load(path, map_location="cpu", weights_only=True)
-        want = module.state_dict()
-        missing = sorted(set(want) - set(saved))
-        extra = sorted(set(saved) - set(want))
-        shapes = sorted(k for k in set(want) & set(saved)
-                        if tuple(want[k].shape) != tuple(saved[k].shape))
-        if missing or extra or shapes:
+        why = mismatch(module.state_dict(), saved)
+        if why is not None:
             print("=" * 72
                   + f"\nWARNING: checkpoint at step {step} ({path}) is "
                   f"INCOMPATIBLE with the\ncurrent model and was NOT "
-                  f"restored: missing keys {missing[:5]}, unexpected keys "
-                  f"{extra[:5]}, shape changed at {shapes[:5]}.\nTraining "
+                  f"restored: {why}.\nTraining "
                   "will start from fresh parameters. Delete or migrate the\n"
                   "checkpoint directory if this is unexpected.\n" + "=" * 72,
                   flush=True)

@@ -5,7 +5,6 @@ stride 1); the uint8 wire feed and the Grain feed are not ported.
 
 from __future__ import annotations
 
-import os
 from typing import Iterator, Optional, Tuple
 
 from objgan_tpu_torch.core.config import Config
@@ -27,7 +26,8 @@ def build_feed(cfg: Config, manifest: Optional[str],
     (``TRAIN.FLAG``) takes the train portion of ``split_records`` and
     sampling the held-out one. Only a training feed augments (flip, <unk>
     word dropout). ``image_root``: the directory the records'
-    ``image_file`` paths are relative to, by default the manifest's own."""
+    ``image_file`` paths are relative to, by default ``cfg.DATA_DIR`` (the
+    entry points' ``--data_dir`` sets it), as in the JAX package."""
     if not manifest:
         return None, 0, None
     records = load_records_json(manifest)
@@ -39,8 +39,8 @@ def build_feed(cfg: Config, manifest: Optional[str],
         print(f"B_VALIDATION split: {len(train_recs)} train / "
               f"{len(val_recs)} held-out; using "
               f"{'train' if cfg.TRAIN.FLAG else 'held-out'}")
-    root = image_root or os.path.dirname(os.path.abspath(manifest))
     feed = CocoFeed(cfg, records, vocab, seed=cfg.RNG_SEED,
                     with_images=with_images, with_masks=with_masks,
-                    augment=bool(cfg.TRAIN.FLAG), image_root=root)
+                    augment=bool(cfg.TRAIN.FLAG),
+                    image_root=image_root or cfg.DATA_DIR)
     return iter(feed), len(records), vocab

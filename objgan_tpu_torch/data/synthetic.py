@@ -10,7 +10,8 @@ shapes, dtypes (int32 ids and lengths, fp32 the rest) and value ranges.
   the object frame's middle;
 * class_ids (B,) = arange(B), unique in the batch (DAMSM's class mask
   drops pairs with equal ids);
-* images: one (B, s, s, 3) tensor in [-1, 1) per pyramid scale.
+* images: one (B, s, s, 3) tensor in [-1, 1) per pyramid scale, left out
+  with ``with_images=False`` (Stages A and B read none).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from objgan_tpu_torch.core.config import Config
 
 
 def synthetic_batch(cfg: Config, generator: torch.Generator,
-                    batch: Optional[int] = None) -> Dict[str, object]:
+                    batch: Optional[int] = None,
+                    with_images: bool = True) -> Dict[str, object]:
     b = batch or cfg.TRAIN.BATCH_SIZE
     t = cfg.TEXT.WORDS_NUM
     o = cfg.OBJ.MAX_OBJECTS
@@ -54,7 +56,7 @@ def synthetic_batch(cfg: Config, generator: torch.Generator,
     cx = uniform(-0.3, 0.3, (b, o, 1, 1))
     cy = uniform(-0.3, 0.3, (b, o, 1, 1))
     shapes = (torch.sqrt((xx - cx) ** 2 + (yy - cy) ** 2) < 0.7).float()
-    return {
+    out = {
         "captions": captions,
         "cap_lens": cap_lens,
         "class_ids": torch.arange(b, dtype=torch.int32, device=dev),
@@ -62,6 +64,8 @@ def synthetic_batch(cfg: Config, generator: torch.Generator,
         "boxes": boxes,
         "shapes": shapes,
         "obj_valid": obj_valid,
-        "images": [uniform(-1.0, 1.0, (b, size, size, 3))
-                   for size in cfg.branch_sizes],
     }
+    if with_images:
+        out["images"] = [uniform(-1.0, 1.0, (b, size, size, 3))
+                         for size in cfg.branch_sizes]
+    return out

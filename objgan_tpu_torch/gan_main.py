@@ -33,8 +33,8 @@ def main(argv=None) -> None:
     ap.add_argument("--captions_pickle", default=None,
                     help="reference captions.pickle for vocab parity")
     ap.add_argument("--data_dir", default=None,
-                    help="directory the manifest's image_file paths are "
-                         "relative to (default: the manifest's own)")
+                    help="sets DATA_DIR, the directory the manifest's "
+                         "image_file paths are relative to")
     ap.add_argument("--max_steps", type=int, default=10 ** 9,
                     help="training: steps to reach (default: MAX_EPOCH "
                          "epochs of the manifest)")
@@ -51,8 +51,10 @@ def main(argv=None) -> None:
     from objgan_tpu_torch.data.feed import build_feed
 
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
+    if args.data_dir:
+        cfg = cfg.replace(DATA_DIR=args.data_dir)
     feed, n_records, vocab = build_feed(cfg, args.manifest,
-                                        args.captions_pickle, args.data_dir)
+                                        args.captions_pickle)
     if cfg.TRAIN.FLAG:
         cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records,
                                                   args.max_steps)

@@ -1,4 +1,4 @@
-"""Adversarial losses of the Stage-C train step. Port of the Stage-C part of
+"""Adversarial losses of the Stage-B and Stage-C train steps. Port of
 ``objgan_tpu/losses/gan_loss.py``.
 
 All are fp32 functions of discriminator outputs, sigmoid cross-entropy on
@@ -8,11 +8,13 @@ matching caption) -> 1, (fake, matching caption) -> 0 and (real,
 mismatched caption) -> 0, plus unconditional real/fake terms, weighted
 (real + uncond_real) / 2 + (fake + wrong + uncond_fake) / 3. The object D
 adds per-object real/fake and class terms, masked by object validity.
+Stage B's shape D scores each object real or fake; its G adds feature
+matching on the D's trunk features and the masks' reconstruction BCE.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,3 +97,34 @@ def roll_sent(sent_emb: torch.Tensor) -> torch.Tensor:
             "wrong-pair loss needs batch size >= 2 (a batch of 1 would pair "
             "each image with its own caption as the 'mismatch')")
     return torch.roll(sent_emb, shifts=1, dims=0)
+
+
+# -- Stage B (shape GAN) -----------------------------------------------------
+
+
+def shape_d_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor,
+                 obj_valid: torch.Tensor) -> torch.Tensor:
+    """Real objects -> 1, fake -> 0, each averaged over valid objects."""
+    return (_masked_mean(_sigmoid_ce(real_logits, 1.0), obj_valid)
+            + _masked_mean(_sigmoid_ce(fake_logits, 0.0), obj_valid))
+
+
+def shape_g_loss(fake_logits: torch.Tensor, real_feats: List[torch.Tensor],
+                 fake_feats: List[torch.Tensor], gt_masks: torch.Tensor,
+                 mask_logits: torch.Tensor, obj_valid: torch.Tensor,
+                 lambda_fm: float, lambda_recon: float = 10.0
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Adversarial + ``lambda_fm`` x feature matching (mean absolute
+    difference of each D feature per object) + ``lambda_recon`` x the
+    masks' sigmoid BCE (averaged over pixels), each averaged over valid
+    objects."""
+    adv = _masked_mean(_sigmoid_ce(fake_logits, 1.0), obj_valid)
+    fm = torch.zeros((), device=fake_logits.device)
+    for rf, ff in zip(real_feats, fake_feats):
+        fm = fm + _masked_mean((rf.float() - ff.float()).abs().mean(-1),
+                               obj_valid)
+    recon = _masked_mean(F.binary_cross_entropy_with_logits(
+        mask_logits, gt_masks.float(), reduction="none").mean((-1, -2)),
+        obj_valid)
+    return adv + lambda_fm * fm + lambda_recon * recon, {
+        "shape_adv": adv, "shape_fm": fm, "shape_recon": recon}

@@ -1,13 +1,20 @@
-"""Stage B, shape generator: box layout -> per-object mask logits.
+"""Stage B, shape generator and discriminator: box layout -> per-object
+mask logits, and real/fake on (mask, box raster, label).
 
-Port of ``ShapeGenerator`` from ``objgan_tpu/models/shape_generator.py``:
-a U-Net over (box raster, label, noise) in each object's own (S, S) frame,
+Port of ``objgan_tpu/models/shape_generator.py``. ``ShapeGenerator`` is a
+U-Net over (box raster, label, noise) in each object's own (S, S) frame,
 objects folded into the batch for the convs, with a bi-directional
-conv-LSTM over the object sequence at the bottleneck. fp32 (the module's
-default dtype in the JAX package; ``cfg.DTYPE`` does not apply here).
+conv-LSTM over the object sequence at the bottleneck.
+``ShapeDiscriminator`` is three strided convs, the last two GroupNormed,
+and a 4x4 logit conv averaged per object; it returns its trunk features
+for feature matching. fp32 (the modules' default dtype in the JAX package;
+``cfg.DTYPE`` does not apply here). On the card every GroupNorm runs
+kernel K1.
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
@@ -85,3 +92,38 @@ class ShapeGenerator(nn.Module):
         d2 = self._Up_1(torch.cat([d3, e2], dim=-1))
         d1 = self._Up_2(torch.cat([d2, e1], dim=-1))
         return self.mask_head(d1).reshape(b, o, s, s).float()
+
+
+class ShapeDiscriminator(nn.Module):
+    """Returns (logits (B, O), [the three trunk features (B, O, -1)])."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        df = cfg.SHAPE.DF_DIM
+        self.label_proj = Dense(cfg.OBJ.LABEL_DIM, df // 2)
+        self._Down_0 = _Down(2 + df // 2, df, norm=False)
+        self._Down_1 = _Down(df, df * 2)
+        self._Down_2 = _Down(df * 2, df * 4)
+        self.logits = Conv(df * 4, 1, (4, 4), bias=True)
+
+    def forward(self, masks: torch.Tensor, boxes: torch.Tensor,
+                labels_emb: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """masks (B, O, S, S) in [0, 1], boxes (B, O, 4), labels_emb
+        (B, O, L)."""
+        s = self.cfg.OBJ.SHAPE_SIZE
+        half = self.cfg.SHAPE.DF_DIM // 2
+        b, o = masks.shape[:2]
+        canvas = box_maps(boxes.float(), s, s)
+        lab = self.label_proj(labels_emb.float())
+        x = torch.cat([
+            masks.float()[..., None], canvas[..., None],
+            lab[:, :, None, None, :].expand(b, o, s, s, half),
+        ], dim=-1).reshape(b * o, s, s, 2 + half)
+        feats = []
+        for down in (self._Down_0, self._Down_1, self._Down_2):
+            x = down(x)
+            feats.append(x)
+        logits = self.logits(x).reshape(b, o, -1).mean(-1).float()
+        return logits, [f.reshape(b, o, -1) for f in feats]

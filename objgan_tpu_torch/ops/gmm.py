@@ -1,5 +1,6 @@
 """Gaussian-mixture box distribution of the Stage-A decoder: parameter
-splits and temperature sampling from injected noise. Port of
+splits, the log-density and its masked NLL (training), the mixture mean
+(beam search) and temperature sampling from injected noise. Port of
 ``objgan_tpu/ops/gmm.py`` (both "diag" and "corr" covariance modes).
 
 Layout of the last dim: [K logits | K*4 means | K*4 log_sigmas], and in
@@ -13,9 +14,12 @@ it exactly the draws JAX made (``jax.random.categorical(k, l)`` is
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 BOX_DIM = 4
+_LOG_2PI = 1.8378770664093453  # log(2 pi)
 _PAIRS = ((0, 1), (2, 3))  # correlated (x, y) and (w, h) blocks
 _RHO_MAX = 0.99
 _MODES = ("diag", "corr")
@@ -53,18 +57,69 @@ def split_params_corr(params: torch.Tensor, num_components: int):
     return logits, mu, log_sigma, _RHO_MAX * torch.tanh(rho_raw)
 
 
+def _split(params: torch.Tensor, num_components: int, mode: str):
+    """(logits, mu, log_sigma, rho or None) of either layout."""
+    _check_mode(mode)
+    if mode == "corr":
+        return split_params_corr(params, num_components)
+    return (*split_params(params, num_components), None)
+
+
+def _comp_ll_corr(z: torch.Tensor, log_sigma: torch.Tensor,
+                  rho: torch.Tensor) -> torch.Tensor:
+    """Per-component log-density from standardised residuals z (..., K, 4)
+    with the block-diagonal correlations rho (..., K, 2)."""
+    ll = 0.0
+    for p, (i, j) in enumerate(_PAIRS):
+        zi, zj, r = z[..., i], z[..., j], rho[..., p]
+        one_m_r2 = 1.0 - r * r
+        q = (zi * zi - 2.0 * r * zi * zj + zj * zj) / one_m_r2
+        ll = (ll - 0.5 * q - _LOG_2PI - 0.5 * torch.log(one_m_r2)
+              - log_sigma[..., i] - log_sigma[..., j])
+    return ll
+
+
+def log_prob(params: torch.Tensor, box: torch.Tensor, num_components: int,
+             mode: str = "diag") -> torch.Tensor:
+    """log p(box | params): box (..., 4) -> (...,)."""
+    logits, mu, log_sigma, rho = _split(params, num_components, mode)
+    log_mix = torch.log_softmax(logits, dim=-1)
+    z = (box[..., None, :] - mu) * torch.exp(-log_sigma)  # (..., K, 4)
+    if rho is not None:
+        comp_ll = _comp_ll_corr(z, log_sigma, rho)
+    else:
+        comp_ll = (-0.5 * (z * z + _LOG_2PI).sum(-1)
+                   - log_sigma.sum(-1))
+    return torch.logsumexp(log_mix + comp_ll, dim=-1)
+
+
+def nll(params: torch.Tensor, box: torch.Tensor, num_components: int,
+        valid: Optional[torch.Tensor] = None,
+        mode: str = "diag") -> torch.Tensor:
+    """Mean negative log-likelihood, over the steps where ``valid`` is set
+    when it is given."""
+    ll = log_prob(params, box, num_components, mode=mode)
+    if valid is None:
+        return -ll.mean()
+    valid = valid.to(ll.dtype)
+    return -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def mean(params: torch.Tensor, num_components: int,
+         mode: str = "diag") -> torch.Tensor:
+    """The mixture mean (..., 4): beam search's deterministic box."""
+    logits, mu, _, _ = _split(params, num_components, mode)
+    w = torch.softmax(logits, dim=-1)
+    return (mu * w[..., None]).sum(-2)
+
+
 def sample(params: torch.Tensor, comp_gumbel: torch.Tensor,
            eps: torch.Tensor, num_components: int, temperature: float = 1.0,
            mode: str = "diag") -> torch.Tensor:
     """Temperature sample a box (..., 4). comp_gumbel (..., K) picks the
     component as argmax(logits / T + gumbel); eps (..., 4) is N(0, 1).
     Temperature scales the logits (1/T) and the sigmas (sqrt(T))."""
-    _check_mode(mode)
-    if mode == "corr":
-        logits, mu, log_sigma, rho = split_params_corr(params,
-                                                       num_components)
-    else:
-        logits, mu, log_sigma = split_params(params, num_components)
+    logits, mu, log_sigma, rho = _split(params, num_components, mode)
     # a CPU scalar tensor: an operand of the device ops without a copy to
     # the device (which would wait for the stream)
     t = torch.tensor(temperature, dtype=logits.dtype)
@@ -79,7 +134,7 @@ def sample(params: torch.Tensor, comp_gumbel: torch.Tensor,
 
     sel_mu = pick(mu)
     sel_sigma = pick(torch.exp(log_sigma))
-    if mode == "corr":
+    if rho is not None:
         sel_rho = pick(rho)
         cols = []
         for p, (i, j) in enumerate(_PAIRS):

@@ -5,30 +5,29 @@ Stage C (the image pyramid) run back to back on one device with no host
 round trip. All randomness of a batch is drawn up front by ``draw_noise``,
 on the device, from an explicit ``torch.Generator``; a test hands
 ``generate`` the draws that JAX's key chain made instead.
+
+``ObjGanPipeline.load_states`` restores each stage from its trainer's newest
+checkpoint (``OUTPUT_DIR/<CONFIG_NAME>_{box,shape,gan}/ckpt``), so training
+stays per stage while inference is composed.
 """
 
 from __future__ import annotations
 
+import os
 import sys
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core import bridge
+from objgan_tpu_torch.core.checkpoint import load_latest, mismatch
 from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.models.box_generator import BoxGenerator
 from objgan_tpu_torch.train import box as box_train
 from objgan_tpu_torch.train import gan as gan_train
 from objgan_tpu_torch.train import shape as shape_train
-
-
-def _gumbel(shape, generator: torch.Generator,
-            device: torch.device) -> torch.Tensor:
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
 def draw_noise(cfg: Config, batch: int, generator: torch.Generator,
@@ -42,20 +41,10 @@ def draw_noise(cfg: Config, batch: int, generator: torch.Generator,
     * Stage C: ``z`` (B, Z_DIM) and the CA-net ``ca_eps``
       (B, CONDITION_DIM), fp32.
     """
-    t, b = cfg.BOX.MAX_SEQ_LENGTH, batch
-
-    def normal(*shape):
-        return torch.randn(shape, generator=generator, device=device)
-
     return {
-        "label_gumbel": _gumbel((t, b, cfg.OBJ.NUM_CLASSES), generator,
-                                device),
-        "comp_gumbel": _gumbel((t, b, cfg.OBJ.GMM_COMPONENTS), generator,
-                               device),
-        "box_normal": normal(t, b, 4),
-        "shape_z": normal(b, cfg.OBJ.MAX_OBJECTS, 1, 1, cfg.SHAPE.GF_DIM),
-        "z": normal(b, cfg.GAN.Z_DIM),
-        "ca_eps": normal(b, cfg.GAN.CONDITION_DIM),
+        **box_train.box_noise(cfg, batch, generator, device),
+        "shape_z": shape_train.shape_noise(cfg, batch, generator, device),
+        **gan_train.train_noise(cfg, batch, generator, device),
     }
 
 
@@ -71,19 +60,71 @@ class ObjGanPipeline(nn.Module):
         self.gan = gan_train.GanState(cfg)
 
     @classmethod
-    def fresh(cls, cfg: Config, seed: int, device) -> "ObjGanPipeline":
-        """Freshly initialised weights drawn from ``seed`` (on the CPU, so a
-        seed gives the same weights on every device), moved to ``device``.
-        No checkpoint loader exists yet: this warns that the weights are
-        untrained."""
+    def _drawn(cls, cfg: Config, seed: int) -> "ObjGanPipeline":
+        """Fresh weights drawn from ``seed`` on the CPU (a seed gives the
+        same weights on every device)."""
         pipe = cls(cfg)
         g = torch.Generator().manual_seed(seed)
         init_weights(pipe, g)
-        pipe.shape.label_table.copy_(gan_train._default_label_table(cfg, g))
-        pipe.gan.label_table.copy_(gan_train._default_label_table(cfg, g))
-        print("WARNING: no checkpoint loader in the PyTorch port yet — the "
-              "composed pipeline runs every stage with UNTRAINED random "
-              "weights", file=sys.stderr)
+        with torch.no_grad():
+            pipe.shape.label_table.copy_(
+                gan_train._default_label_table(cfg, g))
+            pipe.gan.label_table.copy_(gan_train._default_label_table(cfg, g))
+        return pipe
+
+    @classmethod
+    def fresh(cls, cfg: Config, seed: int, device) -> "ObjGanPipeline":
+        """Freshly initialised weights drawn from ``seed``, moved to
+        ``device``, with a warning that every stage is untrained
+        (``load_states`` restores trained checkpoints)."""
+        print("WARNING: ObjGanPipeline.fresh — the composed pipeline runs "
+              "every stage with UNTRAINED random weights (load_states "
+              "restores the stages' checkpoints)", file=sys.stderr)
+        return cls._drawn(cfg, seed).to(device).eval()
+
+    @classmethod
+    def load_states(cls, cfg: Config, output_dir: Optional[str] = None,
+                    device="cuda") -> "ObjGanPipeline":
+        """Each stage from its trainer's newest checkpoint under
+        ``<output_dir or OUTPUT_DIR>/<CONFIG_NAME>_{box,shape,gan}/ckpt``
+        (the gan stage from ``TRAIN.NET_G`` when set): ``BoxTrainer``'s
+        ``model`` -> ``box``; ``ShapeTrainer``'s ``g`` and ``label_table``
+        -> ``shape``; ``GanTrainer``'s EMA generator ``ema_g`` ->
+        ``gan.g_net``, with its ``text_enc`` and ``label_table``. A stage
+        without a checkpoint, or with one that does not fit this config,
+        keeps fresh weights from ``RNG_SEED`` and says so loudly."""
+        pipe = cls._drawn(cfg, cfg.RNG_SEED)
+        base = output_dir or cfg.OUTPUT_DIR
+        # stage: (module, {checkpoint key prefix: module key prefix})
+        maps = {
+            "box": (pipe.box, {"model.": ""}),
+            "shape": (pipe.shape, {"g.": "g.", "label_table": "label_table"}),
+            "gan": (pipe.gan, {"ema_g.": "g_net.", "text_enc.": "text_enc.",
+                               "label_table": "label_table"}),
+        }
+        for name, (module, prefixes) in maps.items():
+            d = os.path.join(base, f"{cfg.CONFIG_NAME}_{name}", "ckpt")
+            if name == "gan" and cfg.TRAIN.NET_G:
+                d = cfg.TRAIN.NET_G
+            step, saved = load_latest(d)
+            state = None
+            if saved is not None:
+                state = {new + k[len(old):]: v for k, v in saved.items()
+                         for old, new in prefixes.items()
+                         if k.startswith(old)}
+                why = mismatch(module.state_dict(), state)
+                if why is not None:
+                    print(f"WARNING: the {name} checkpoint at step {step} "
+                          f"under {d} does not fit this config: {why}",
+                          file=sys.stderr)
+                    state = None
+            if state is None:
+                print(f"WARNING: no {name} checkpoint under {d} — the "
+                      f"composed pipeline will run this stage with UNTRAINED "
+                      f"random weights", file=sys.stderr)
+                continue
+            module.load_state_dict(state)
+            print(f"restored the {name} stage from {d} (step {step})")
         return pipe.to(device).eval()
 
     def load_jax_params(self, box: Mapping, shape_g: Mapping,

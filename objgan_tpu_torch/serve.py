@@ -4,10 +4,12 @@ layouts out.
     python -m objgan_tpu_torch.serve --cfg cfg/eval_coco.yml \
         --vocab_from_input --input requests.jsonl --out served/
 
-Same flags and output as ``serve.py`` plus ``--device`` (default ``cuda``):
-one JSON response per request on stdout, ``serve_<id>.png`` per request,
-the run's stats as JSON on stderr. No checkpoint loader exists yet, so the
-weights are fresh and untrained (the run says so on stderr).
+Same flags and output as ``serve.py`` plus ``--device`` (default ``cuda``)
+and ``--output_dir``: one JSON response per request on stdout,
+``serve_<id>.png`` per request, the run's stats as JSON on stderr. Each
+stage is restored from its newest checkpoint under ``--output_dir``
+(default ``OUTPUT_DIR``), ``<CONFIG_NAME>_{box,shape,gan}/ckpt``; a stage
+without one runs with untrained weights, and the run says so on stderr.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ def main(argv=None) -> None:
                          "captions themselves (reads the whole input up "
                          "front; token ids cannot match any trained "
                          "checkpoint)")
+    ap.add_argument("--output_dir", default=None,
+                    help="where the stages' checkpoints are (default "
+                         "OUTPUT_DIR)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on")
     args = ap.parse_args(argv)
@@ -72,7 +77,7 @@ def main(argv=None) -> None:
     try:
         stats = run_serve(cfg, vocab, requests, args.out,
                           batch_size=args.batch, emit=emit,
-                          device=args.device)
+                          device=args.device, output_dir=args.output_dir)
     finally:
         if lines is not sys.stdin:
             lines.close()

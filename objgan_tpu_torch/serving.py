@@ -72,13 +72,16 @@ def run_serve(
     save_images: bool = True,
     device="cuda",
     pipeline=None,
+    output_dir: Optional[str] = None,
 ) -> Dict:
     """Drive the composed pipeline over a request stream; returns stats.
 
     ``emit`` receives one response dict per request, in request order.
-    ``pipeline`` is an ``ObjGanPipeline`` on ``device``; without one, a
-    fresh (untrained, loudly warned) pipeline is built from
-    ``cfg.RNG_SEED``. In the stats, ``batch_done_s`` holds per batch the
+    ``pipeline`` is an ``ObjGanPipeline`` on ``device``; without one, each
+    stage is restored from its newest checkpoint under ``output_dir`` (by
+    default ``cfg.OUTPUT_DIR``) by ``ObjGanPipeline.load_states``, and a
+    stage without one runs with fresh weights from ``cfg.RNG_SEED``,
+    loudly warned. In the stats, ``batch_done_s`` holds per batch the
     seconds from the start until its results were on the host, and
     ``emit_s`` the seconds the host then spent writing its PNGs and
     responses."""
@@ -98,7 +101,7 @@ def run_serve(
     os.makedirs(out_dir, exist_ok=True)
     true_fp32()
     pipe = (pipeline if pipeline is not None
-            else ObjGanPipeline.fresh(cfg, cfg.RNG_SEED, device))
+            else ObjGanPipeline.load_states(cfg, output_dir, device))
     gen = torch.Generator(device=device).manual_seed(cfg.RNG_SEED)
 
     def encode(group: List[Dict]):

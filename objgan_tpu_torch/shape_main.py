@@ -1,0 +1,75 @@
+"""Stage-B entry point of the PyTorch port, mirroring
+``shape_generation/main.py``:
+
+    python -m objgan_tpu_torch.shape_main --cfg cfg/shape_coco.yml \
+        [--manifest data_proc2k/manifest.json] --max_steps N [--device cpu]
+    python -m objgan_tpu_torch.shape_main --cfg cfg/shape_coco.yml --eval \
+        --manifest data_proc2k/manifest.json --num_batches 2
+
+Trains the shape generator and discriminator on the manifest's layouts
+and instance masks (no images are read; synthetic batches without
+``--manifest``): metric lines, keep-3 checkpoints and the metrics CSV under
+``OUTPUT_DIR/<CONFIG_NAME>_shape``, resumed from its newest checkpoint.
+With ``--eval``, the held-out mask IoU, pixel accuracy and area ratio of
+the newest checkpoint. Runs on the CUDA device unless ``--device`` says
+otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
+          "VGG perceptual term (SHAPE.PERCEPTUAL: vgg) and loading a JAX "
+          "(Orbax) checkpoint.")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Stage B: boxes -> masks.",
+                                 epilog=_LATER)
+    ap.add_argument("--cfg", dest="cfg_file", default=None)
+    ap.add_argument("--manifest", default=None)
+    ap.add_argument("--wire", action="store_true",
+                    help="refused: the uint8 wire feed is not ported yet")
+    ap.add_argument("--captions_pickle", default=None)
+    ap.add_argument("--data_dir", default=None,
+                    help="sets DATA_DIR, the directory the manifest's "
+                         "image_file paths are relative to")
+    ap.add_argument("--max_steps", type=int, default=10 ** 9)
+    ap.add_argument("--eval", action="store_true",
+                    help="held-out mask IoU/accuracy instead of training")
+    ap.add_argument("--num_batches", type=int, default=10)
+    ap.add_argument("--log_every", type=int, default=50,
+                    help="training: steps between metric lines")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda)")
+    args = ap.parse_args(argv)
+    if args.wire:
+        ap.error("--wire: the uint8 wire feed is not ported yet "
+                 "(ROADMAP.md, Queue 1)")
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import Config, cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+
+    cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
+    if args.data_dir:
+        cfg = cfg.replace(DATA_DIR=args.data_dir)
+    if args.eval:
+        # the sampling path: B_VALIDATION serves the held-out split
+        cfg = cfg.merged({"TRAIN": {"FLAG": False}})
+        feed, _, _ = build_feed(cfg, args.manifest, args.captions_pickle,
+                                with_images=False)
+        cli.eval_shape(cfg, feed, num_batches=args.num_batches,
+                       device=args.device)
+        return
+    # Stage B reads layouts and instance masks, never photos
+    feed, n_records, _ = build_feed(cfg, args.manifest, args.captions_pickle,
+                                    with_images=False)
+    cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
+    cli.train_shape(cfg, feed, max_steps=max_steps, device=args.device,
+                    log_every=args.log_every)
+
+
+if __name__ == "__main__":
+    main()

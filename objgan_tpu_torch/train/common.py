@@ -10,7 +10,7 @@ dict of tensors, which ``core/checkpoint.py`` saves and restores.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +19,10 @@ import torch.nn as nn
 _ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
 
 
-def adam(params, lr: float) -> torch.optim.Adam:
-    """optax.adam(lr, b1=0.5, b2=0.999) (eps 1e-8)."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.5, 0.999), eps=1e-8)
+def adam(params, lr: float, b1: float = 0.5) -> torch.optim.Adam:
+    """optax.adam(lr, b1=b1, b2=0.999) (eps 1e-8); the GAN stages and
+    DAMSM take b1 0.5, Stage A optax's default 0.9."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, 0.999), eps=1e-8)
 
 
 def step_generator(seed: int, step: int, device,
@@ -60,6 +61,39 @@ class Trainer(nn.Module):
 
     def optimizers(self) -> List[torch.optim.Optimizer]:
         raise NotImplementedError
+
+    @staticmethod
+    def grads_of(losses: Sequence[Tuple[torch.Tensor,
+                                        Dict[str, nn.Parameter]]],
+                 metrics: Dict[str, torch.Tensor]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Each (loss, {name: parameter}) pair's gradients by name (zeros
+        where the loss does not reach a parameter), and ``metrics``
+        detached."""
+        grads = {}
+        for loss, params in losses:
+            got = torch.autograd.grad(loss, list(params.values()),
+                                      allow_unused=True)
+            for (name, p), g in zip(params.items(), got):
+                grads[name] = torch.zeros_like(p) if g is None else g
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def clip_(self, grads: Dict[str, torch.Tensor]) -> None:
+        """Clips ``grads`` in place before ``apply_grads``' Adam steps;
+        none by default."""
+
+    @torch.no_grad()
+    def apply_grads(self, grads: Dict[str, torch.Tensor]) -> None:
+        """``clip_``, then one Adam step of every optimiser on ``grads``
+        (by parameter name)."""
+        self.clip_(grads)
+        for name, p in self.named_parameters():
+            if name in grads:
+                p.grad = grads[name]
+        for opt in self.optimizers():
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        self.step += 1
 
     def _adam_entries(self) -> Iterator[Tuple[str, torch.optim.Optimizer,
                                               nn.Parameter]]:

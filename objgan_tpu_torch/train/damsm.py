@@ -69,26 +69,14 @@ class DamsmTrainer(Trainer):
         """Every parameter's gradient (unclipped) by name, and the step's
         metrics (detached)."""
         total, metrics = self.losses(batch, keep_mask)
-        params = dict(self.named_parameters())
-        got = torch.autograd.grad(total, list(params.values()),
-                                  allow_unused=True)
-        grads = {name: torch.zeros_like(p) if g is None else g
-                 for (name, p), g in zip(params.items(), got)}
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return self.grads_of([(total, dict(self.named_parameters()))],
+                             metrics)
 
-    @torch.no_grad()
-    def apply_grads(self, grads: Dict[str, torch.Tensor]) -> None:
-        """Clip the text encoder's gradients, then one Adam step of each
-        encoder."""
+    def clip_(self, grads: Dict[str, torch.Tensor]) -> None:
+        """The text encoder's gradients only, by their global norm."""
         text = [grads[f"text_enc.{n}"] for n, _ in
                 self.text_enc.named_parameters()]
         clip_by_global_norm_(text, self.cfg.TRAIN.RNN_GRAD_CLIP)
-        for name, p in self.named_parameters():
-            p.grad = grads[name]
-        for opt in self.optimizers():
-            opt.step()
-            opt.zero_grad(set_to_none=True)
-        self.step += 1
 
     def train_step(self, batch: Dict,
                    keep_mask: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -281,29 +281,17 @@ class GanTrainer(Trainer):
         """Every trained parameter's gradient at the current iterate, by
         parameter name, and the step's metrics (detached)."""
         d_total, g_total, metrics = self.losses(batch, z, ca_eps)
-        grads = {}
-        for loss, params in ((d_total, self.d_parameters()),
-                             (g_total, self.g_parameters())):
-            got = torch.autograd.grad(loss, list(params.values()),
-                                      allow_unused=True)
-            for (name, p), g in zip(params.items(), got):
-                grads[name] = torch.zeros_like(p) if g is None else g
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return self.grads_of([(d_total, self.d_parameters()),
+                              (g_total, self.g_parameters())], metrics)
 
     @torch.no_grad()
     def apply_grads(self, grads: Dict[str, torch.Tensor]) -> None:
         """One Adam step of every optimiser on ``grads``, then the EMA."""
-        for name, p in self.named_parameters():
-            if name in grads:
-                p.grad = grads[name]
-        for opt in self.optimizers():
-            opt.step()
-            opt.zero_grad(set_to_none=True)
+        super().apply_grads(grads)
         ema = list(self.ema_g.parameters())
         torch._foreach_mul_(ema, self.EMA_DECAY)
         torch._foreach_add_(ema, list(self.g_net.parameters()),
                             alpha=1.0 - self.EMA_DECAY)
-        self.step += 1
 
     def train_step(self, batch: Dict, z: torch.Tensor,
                    ca_eps: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,9 @@
 """The port's kernels against their plain PyTorch twins on the card: K1
-(objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model and a
-DAMSM step give it and under autograd, K2 and K3 (objgan_tpu_torch/csrc/roi_align.cu) at
-the train step's shapes and under autograd. Card-only: marked ``cuda`` and
+(objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model, a
+DAMSM step and a Stage-B step give it and under autograd (with a tiny
+Stage-B step on the card against the CPU), K2 and K3
+(objgan_tpu_torch/csrc/roi_align.cu) at the train step's shapes and under
+autograd. Card-only: marked ``cuda`` and
 skipped without a CUDA device. This file imports neither JAX nor the
 parity helpers, so on a GPU host it runs as
 
@@ -51,7 +53,9 @@ SHAPES = [
     (16, 64, 512, torch.bfloat16, True),     # InitStageG up0, cg 16
     (16, 1024, 128, torch.bfloat16, False),  # LayoutEncoder
     (160, 4096, 64, torch.float32, False),   # ShapeGenerator _Up_2
-    (160, 64, 256, torch.float32, False),    # ShapeGenerator _Down_2
+    (160, 64, 256, torch.float32, False),    # Shape G and D _Down_2
+    (160, 256, 128, torch.float32, False),   # Shape G and D _Down_1, _Up_0
+    (160, 1024, 64, torch.float32, False),   # ShapeGenerator _Up_1
     (3, 37, 6, torch.float32, False),        # C % 4 != 0: scalar path
     (2, 100, 12, torch.bfloat16, True),      # C/2 % 8 != 0: scalar path
     # the fp32 image encoder of a DAMSM step (cfg/damsm_coco.yml, B = 48);
@@ -227,6 +231,44 @@ def test_k1_function_gradient_matches_twin(dev):
             grads.append(torch.autograd.grad(y, leaves, g))
         for got, want in zip(*grads):
             assert float((got - want).abs().max()) <= 1e-4
+
+
+# Stage B's four K1 shapes (B * O = 160 objects of cfg/shape_coco.yml, fp32)
+STAGE_B = [(160, 4096, 64), (160, 1024, 64), (160, 256, 128),
+           (160, 64, 256)]
+
+
+@pytest.mark.parametrize("b,n,c", STAGE_B)
+def test_k1_gradient_at_stage_b_shapes(dev, b, n, c):
+    """Under autograd at Stage B's shapes (the shape trainer's G and D):
+    K1's output and the gradients (dx, dscale, dbias) against the twin's,
+    within 1e-4 of each tensor's largest magnitude (at least 1e-4: dscale
+    and dbias sum 655,360 rows here, to magnitudes of ~1e3)."""
+    x, scale, bias = _inputs(b, n, c, torch.float32, dev, seed=5)
+    g = torch.randn(b, n, c, device=dev)
+    outs = []
+    for fn in (groupnorm.group_norm, groupnorm.group_norm_reference):
+        leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+        before = groupnorm.launches
+        y = fn(*leaves, 32, 1e-6, False)
+        assert groupnorm.launches - before == (fn is groupnorm.group_norm)
+        outs.append((y.detach(), *torch.autograd.grad(y, leaves, g)))
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= 1e-4 * max(
+            1.0, float(want.abs().max()))
+
+
+def test_shape_step_on_card_matches_cpu(dev):
+    """A tiny fp32 Stage-B step (``ShapeTrainer.grads``): K1 launched 11
+    times on the card; metrics within 1e-4 relative and every G and D
+    gradient within 1e-3 relative norm of the CPU's (the twins)."""
+    from objgan_tpu_torch.train import card_check
+
+    before = groupnorm.launches
+    r = card_check.tiny_step_on_card("shape", dev)
+    assert groupnorm.launches - before == 11
+    assert r["metric_err"] <= card_check.METRIC_RTOL == 1e-4
+    assert r["grad_err"] <= card_check.GRAD_RTOL == 1e-3, r["worst"]
 
 
 def _roi_inputs(b, h, w, c, o, dtype, dev, seed=0):

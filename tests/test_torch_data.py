@@ -236,9 +236,8 @@ def test_coco_feed_copy_matches_original(manifest, source, with_masks,
                                                 (True, False)])
 def test_build_feed_matches_gan_main(manifest, b_validation, train):
     """``data/feed.py::build_feed`` against ``gan/main.py::build_feed`` (one
-    process; the JAX side reads images under DATA_DIR, the port under the
-    manifest's directory): the record count, the vocabulary and two
-    batches."""
+    process; both read images under DATA_DIR): the record count, the
+    vocabulary and two batches."""
     import types
 
     from gan.main import build_feed as jax_build_feed
@@ -250,14 +249,65 @@ def test_build_feed_matches_gan_main(manifest, b_validation, train):
     args = types.SimpleNamespace(manifest=manifest, captions_pickle=None)
     want_feed, want_n, want_vocab = jax_build_feed(jc, args,
                                                    with_masks=train)
-    got_feed, got_n, got_vocab = tfeed.build_feed(
-        tc.replace(DATA_DIR="elsewhere"), manifest, with_masks=train)
+    got_feed, got_n, got_vocab = tfeed.build_feed(tc, manifest,
+                                                  with_masks=train)
     assert got_n == want_n == (11 if b_validation and train else
                                1 if b_validation else 12)
     assert got_vocab.wordtoix == want_vocab.wordtoix
     for _ in range(2):
         _assert_batches_equal(next(got_feed), next(want_feed))
     assert tfeed.build_feed(tc, None) == (None, 0, None)
+
+
+@pytest.mark.parametrize("entry", ["gan_main", "pretrain_damsm"])
+def test_data_dir_resolves_images_as_the_jax_feed(manifest, tmp_path,
+                                                  monkeypatch, entry):
+    """The manifest copied away from its images: ``--data_dir`` (which sets
+    DATA_DIR) finds them as JAX's ``CocoFeed`` does under DATA_DIR, and the
+    first batches are equal; without it the port looks under DATA_DIR, not
+    beside the manifest, as the JAX package does."""
+    import json
+    import shutil
+
+    from objgan_tpu_torch import gan_main, pretrain_damsm
+
+    root = os.path.dirname(manifest)
+    moved = tmp_path / "elsewhere" / "manifest.json"
+    moved.parent.mkdir()
+    shutil.copy(manifest, moved)
+    (tmp_path / "elsewhere" / "images").mkdir()  # not the photos
+    yml = tmp_path / "cfg.yml"
+    yml.write_text(json.dumps({"OBJ": {"NUM_CLASSES": 81},
+                               "TEXT": {"VOCAB_SIZE": 500},
+                               "TRAIN": {"BATCH_SIZE": 4}}))
+    jc = jconfig.cfg_from_file(str(yml)).replace(DATA_DIR=root)
+    records = jpipe.load_records_json(str(moved))
+    caps = [c for rec in records for c in rec["captions"]]
+    want = iter(jpipe.CocoFeed(jc, records, JVocab.build(caps),
+                               seed=jc.RNG_SEED, augment=jc.TRAIN.FLAG,
+                               with_masks=entry == "gan_main"))
+    # what the entry point does with --data_dir, up to its feed
+    seen, build_feed = {}, tfeed.build_feed
+
+    def capture(cfg, *args, **kwargs):
+        seen["feed"] = build_feed(cfg, *args, **kwargs)
+        raise SystemExit(0)
+
+    module = gan_main if entry == "gan_main" else pretrain_damsm
+    monkeypatch.setattr(tfeed, "build_feed", capture)
+    with pytest.raises(SystemExit):
+        module.main(["--cfg", str(yml), "--manifest", str(moved),
+                     "--data_dir", root, "--device", "cpu"])
+    feed, n_records, _ = seen["feed"]
+    assert n_records == 12
+    _assert_batches_equal(next(feed), next(want))
+    # without --data_dir the images are read under DATA_DIR, never beside
+    # the manifest (whose images/ is empty)
+    tc = tconfig.cfg_from_file(str(yml)).replace(
+        DATA_DIR=str(tmp_path / "no"))
+    feed, _, _ = build_feed(tc, str(moved))
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "no")):
+        next(feed)
 
 
 @pytest.mark.parametrize("n", [1, 2, 10, 37])

@@ -83,6 +83,32 @@ def to_numpy_tree(tree):
     return jax.tree.map(lambda a: np.asarray(a), jax.device_get(tree))
 
 
+def torch_to_jax(module, template):
+    """``module``'s parameters as a JAX param tree shaped like
+    ``template``: the inverse of ``core.bridge.load_jax_params``."""
+    from objgan_tpu_torch.core import bridge
+
+    params = dict(module.named_parameters())
+
+    def walk(tree, mods):
+        out = {}
+        for key, leaf in tree.items():
+            if not hasattr(leaf, "shape"):
+                out[key] = walk(leaf, mods + [key])
+                continue
+            name, _ = bridge._to_torch(key, np.asarray(leaf))
+            w = n(params[".".join(mods + [name])])
+            if key == "kernel":
+                w = w.T if w.ndim == 2 else w.transpose(2, 3, 1, 0)
+            assert w.shape == leaf.shape, (mods, key)
+            out[key] = np.ascontiguousarray(w)
+        return out
+
+    if set(template) == {"params"}:
+        return {"params": walk(template["params"], [])}
+    return walk(template, [])
+
+
 def example_batch(cfg, batch: int = 2, seed: int = 0):
     """Caption ids and lengths made with numpy (the last row shorter)."""
     r = np.random.default_rng(seed)
@@ -154,22 +180,33 @@ def replay_noise(cfg, rng, batch: int):
     """
     b = batch
     k_box, k_shape, k_gan = jax.random.split(rng, 3)
-    lg, cg, bn = [], [], []
-    for step in jax.random.split(k_box, cfg.BOX.MAX_SEQ_LENGTH):
-        k1, k2 = jax.random.split(step)
-        lg.append(jax.random.gumbel(k1, (b, cfg.OBJ.NUM_CLASSES)))
-        k_rng, g_rng = jax.random.split(k2)
-        cg.append(jax.random.gumbel(k_rng, (b, cfg.OBJ.GMM_COMPONENTS)))
-        bn.append(jax.random.normal(g_rng, (b, 4)))
     k_z, k_ca = jax.random.split(k_gan)
     noise = {
-        "label_gumbel": jnp.stack(lg), "comp_gumbel": jnp.stack(cg),
-        "box_normal": jnp.stack(bn),
-        "shape_z": jax.random.normal(
-            k_shape, (b, cfg.OBJ.MAX_OBJECTS, 1, 1, cfg.SHAPE.GF_DIM),
-            jnp.float32),
-        "z": jax.random.normal(k_z, (b, cfg.GAN.Z_DIM)),
-        "ca_eps": jax.random.normal(k_ca, (b, cfg.GAN.CONDITION_DIM),
-                                    jnp.float32),
+        "shape_z": replay_shape_z(cfg, k_shape, b),
+        "z": t(jax.random.normal(k_z, (b, cfg.GAN.Z_DIM))),
+        "ca_eps": t(jax.random.normal(k_ca, (b, cfg.GAN.CONDITION_DIM),
+                                      jnp.float32)),
     }
-    return {k: t(v) for k, v in noise.items()}
+    return {**replay_box_noise(cfg, k_box, b), **noise}
+
+
+def replay_box_noise(cfg, rng, batch: int):
+    """The draws of ``BoxGenerator.sample(..., rng)`` in the layout of the
+    port's ``train/box.py::box_noise`` (see ``replay_noise``)."""
+    lg, cg, bn = [], [], []
+    for step in jax.random.split(rng, cfg.BOX.MAX_SEQ_LENGTH):
+        k1, k2 = jax.random.split(step)
+        lg.append(jax.random.gumbel(k1, (batch, cfg.OBJ.NUM_CLASSES)))
+        k_rng, g_rng = jax.random.split(k2)
+        cg.append(jax.random.gumbel(k_rng, (batch, cfg.OBJ.GMM_COMPONENTS)))
+        bn.append(jax.random.normal(g_rng, (batch, 4)))
+    return {"label_gumbel": t(jnp.stack(lg)),
+            "comp_gumbel": t(jnp.stack(cg)), "box_normal": t(jnp.stack(bn))}
+
+
+def replay_shape_z(cfg, rng, batch: int):
+    """The noise ``ShapeGenerator`` draws from ``rng``:
+    (B, O, 1, 1, SHAPE.GF_DIM)."""
+    return t(jax.random.normal(
+        rng, (batch, cfg.OBJ.MAX_OBJECTS, 1, 1, cfg.SHAPE.GF_DIM),
+        jnp.float32))
