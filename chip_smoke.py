@@ -7,9 +7,10 @@ Drives the port's paths with fresh weights from ``RNG_SEED``: serving at
 the full width of ``cfg/eval_coco.yml`` (batch 16, bf16 Stage C, 64 -> 128
 -> 256 px), the Stage-C train step at the full width of
 ``cfg/coco_objgan.yml`` (batch 16, bf16 G and D, DF_DIM 64, 10 objects,
-ROI 7), DAMSM pretraining, Stage-A and Stage-B training, and serving the
-three trained stages from their checkpoints; and checks every
-hand-written kernel on them:
+ROI 7), DAMSM pretraining (lite and inception backbones), Stage-A and
+Stage-B training (``fm`` and ``vgg`` perceptual modes), serving the three
+trained stages from their checkpoints and evaluating the Stage-C one (lite
+and strict); and checks every hand-written kernel on them:
 
 1. build        K1 (``csrc/groupnorm.cu``) and K2/K3 (``csrc/roi_align.cu``)
                 compiled by nvcc, one process per source, in parallel;
@@ -100,7 +101,38 @@ hand-written kernel on them:
                 every stage restored, none untrained, and the first
                 batch's layout, masks and images equal to those of
                 ``cli.sample_box``, the restored Stage-B sampler and the
-                restored Stage-C sampler for the same noise.
+                restored Stage-C sampler for the same noise;
+19. eval        ``cli.evaluate`` (what ``python -m objgan_tpu_torch.eval``
+                runs) at ``cfg/eval_coco.yml`` on phase 6's Stage-C
+                checkpoint, EVAL_BATCHES held-out batches of the manifest,
+                ``--real_stats all`` and the frozen probe
+                (``assets/frozen_lite.npz``): the checkpoint restored,
+                ``gan/eval.py``'s lines printed, every metric finite, K1
+                launched once per GroupNorm call (the sampling's, 8 per
+                lite-encoder application: the extractor and the frozen
+                extractor on the fakes, ``img_enc`` on fakes and reals;
+                8 per batch of the full-manifest pass); run again, both
+                caches read and every metric equal to the bit; per batch,
+                synchronised, the host feed, the sampling and the rest
+                (extraction) apart, the full-manifest pass, peak memory;
+20. eval_k1     every K1 call of one eval batch, checked as in phase 3;
+21. strict      a random Inception-v3 written as a torchvision state dict
+                and read back through ``inception_pth``: the converter
+                against the module; ``cli.evaluate --strict`` on 2 batches,
+                finite metrics; Inception's pool activations and
+                probabilities at 299 px on 32 images, timed;
+22. damsm_inception  ``cli.pretrain_damsm`` with ``TEXT.CNN_BACKBONE:
+                inception`` at ``cfg/damsm_coco.yml`` width for 2 steps:
+                the backbone bitwise unmoved, the projections and the text
+                encoder moved, no Adam state for the backbone, the
+                checkpoint round trip;
+23. shape_vgg   ``cli.train_shape`` with ``SHAPE.PERCEPTUAL: vgg`` at
+                ``cfg/shape_coco.yml`` width for 2 steps: finite losses
+                with the perceptual term, VGG unmoved and without Adam
+                state, K1 11 times a step; the device step against phase
+                15's;
+24. small_eval  the tiny fp32 eval on the GPU (K1) against the CPU (twins),
+                same checkpoint, batches and noise: every metric.
 
 Times are device time from CUDA events around a CUDA-graph replay of one
 call, median of 20, unless a line says otherwise. K1, K2, K3 and
@@ -151,6 +183,7 @@ TRAIN_STEPS = 6
 DAMSM_STEPS = 6
 BOX_STEPS = 5
 SHAPE_STEPS = 5
+EVAL_BATCHES = 16  # 256 samples
 DATA_DIR = "data_proc2k"  # the manifest's image_file paths are under it
 MANIFEST = os.path.join(DATA_DIR, "manifest.json")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
@@ -1338,20 +1371,13 @@ def _run_stage(phase, run, cfg, feed, steps, module_counts=()):
     set to 0 just before and read just after. Returns (trainer, metric
     rows, kernel counts, forward calls of ``module_counts`` types, wall s,
     peak GiB)."""
-    import collections
     import contextlib
     import io
 
     import torch
 
-    calls = collections.Counter()
-
-    def count(mod, _):
-        if isinstance(mod, module_counts):
-            calls[type(mod)] += 1
-
     out = io.StringIO()
-    hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+    calls, hook = _count_calls(module_counts)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1796,6 +1822,510 @@ def phase_compose(out_dir, vocab):
         f"same noise, to the bit (cuDNN deterministic)")
 
 
+def _count_calls(types_):
+    """(Counter, hook): forward calls of modules of ``types_`` counted by a
+    global pre-hook until the hook goes."""
+    import collections
+
+    import torch
+
+    calls = collections.Counter()
+
+    def count(mod, _):
+        if isinstance(mod, types_):
+            calls[type(mod)] += 1
+
+    return calls, torch.nn.modules.module.register_module_forward_pre_hook(
+        count)
+
+
+def _eval_cfg(out_dir):
+    from objgan_tpu_torch.core.config import cfg_from_file
+
+    return cfg_from_file(os.path.join(ROOT, "cfg", "eval_coco.yml")).merged(
+        {"OUTPUT_DIR": out_dir, "DATA_DIR": os.path.join(ROOT, DATA_DIR)})
+
+
+def _eval_run(cfg, manifest, num_batches, timing=None, **kw):
+    """``cli.evaluate`` on a fresh held-out manifest feed, stdout captured;
+    with ``timing`` (a dict of lists) it records, synchronised, each
+    batch's host feed ms, sampling ms and loop ms (feed pull to feed
+    pull), and the full-manifest pass's seconds. Returns (metrics, text)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.train.gan import GanTrainer
+    from objgan_tpu_torch.utils import fid_runner
+
+    feed, _, vocab = build_feed(cfg, manifest, augment=False)
+    sample, real_pass = GanTrainer.sample, fid_runner.real_stats_and_probe
+    if timing is not None:
+        def timed_feed(feed):
+            start = None
+            while True:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if start is not None:
+                    timing["loop"].append(1000.0 * (t0 - start))
+                start = t0
+                batch = next(feed)
+                timing["feed"].append(1000.0 * (time.perf_counter() - t0))
+                yield batch
+
+        def timed_sample(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sample(self, *a, **k)
+            torch.cuda.synchronize()
+            timing["sample"].append(1000.0 * (time.perf_counter() - t0))
+            return out
+
+        def timed_pass(*a, **k):
+            t0 = time.perf_counter()
+            out = real_pass(*a, **k)
+            timing["pass_s"].append(time.perf_counter() - t0)
+            return out
+
+        feed = timed_feed(feed)
+        GanTrainer.sample = timed_sample
+        fid_runner.real_stats_and_probe = timed_pass
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            metrics = cli.evaluate(cfg, feed, num_batches, manifest=manifest,
+                                   feed_vocab=vocab, device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        GanTrainer.sample = sample
+        fid_runner.real_stats_and_probe = real_pass
+    return metrics, out.getvalue()
+
+
+def phase_eval(out_dir):
+    """``cli.evaluate`` (what ``python -m objgan_tpu_torch.eval`` runs) at
+    ``cfg/eval_coco.yml`` on the Stage-C checkpoint of phase ``train``
+    under ``out_dir``, EVAL_BATCHES held-out batches of the manifest,
+    ``--real_stats all`` and the frozen probe; then again, reading both
+    caches. Returns (the work directory, K1 launches of the first run)."""
+    import collections
+
+    import torch
+
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.models.generator import GNet
+
+    cfg = _eval_cfg(out_dir)
+    # the manifest is copied, so that the caches written next to it land
+    # in a temporary directory; its images stay under DATA_DIR
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    manifest = os.path.join(work, "manifest.json")
+    shutil.copy(os.path.join(ROOT, MANIFEST), manifest)
+    frozen = os.path.join(ROOT, "assets", "frozen_lite.npz")
+    n_g = sum(isinstance(m, FusedGroupNorm) for m in GNet(cfg).modules())
+    timing = collections.defaultdict(list)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        calls, hook = _count_calls((FusedGroupNorm,))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.monotonic()
+            first, text = _eval_run(cfg, manifest, EVAL_BATCHES, timing,
+                                    real_stats="all", frozen_probe=frozen)
+            wall_s = time.monotonic() - t0
+            k1 = _counts()[0]
+        finally:
+            hook.remove()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        _reset_counts()
+        t0 = time.monotonic()
+        second, text2 = _eval_run(cfg, manifest, EVAL_BATCHES,
+                                  real_stats="all", frozen_probe=frozen)
+        wall2_s = time.monotonic() - t0
+        k1_cached = _counts()[0]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(f"evaluating checkpoint at step {TRAIN_STEPS}" in text,
+          "evaluate did not restore the Stage-C checkpoint")
+    for line in ("eval over", "real-side FID statistics: full manifest",
+                 "NOTE: FID over", "FID:", "IS:", "frozen lite-IS:",
+                 "R-precision:", "R-precision (real-image ceiling):",
+                 "Retrieval mean rank (full pool",
+                 "Retrieval mean rank (real-image ceiling)"):
+        check(line in text, f"evaluate printed no {line!r} line")
+    check("cached" not in text, "the first run read a cache")
+    check("real-side stats: cached" in text2 and "lite-IS probe: cached"
+          in text2, "the second run did not read both caches")
+    bad = [k for k, v in first.items() if not math.isfinite(v)]
+    check(not bad, f"non-finite metrics: {bad}")
+    diff = [k for k in first if first[k] != second[k]]
+    check(not diff, f"the cached run differs at {diff}")
+    n_batches = math.ceil(2000 / cfg.TRAIN.BATCH_SIZE)
+    # per batch: sampling, then the lite extractor and the frozen extractor
+    # on the fakes and img_enc on the fakes and the reals (8 GroupNorms
+    # each); the full-manifest pass: the lite extractor once per batch
+    per_batch = n_g + 4 * 8
+    check(k1 == calls[FusedGroupNorm] == EVAL_BATCHES * per_batch
+          + n_batches * 8, f"K1 launched {k1} times for "
+          f"{calls[FusedGroupNorm]} GroupNorm calls (expected "
+          f"{EVAL_BATCHES} x {per_batch} + {n_batches} x 8)")
+    check(k1_cached == EVAL_BATCHES * per_batch,
+          f"the cached run launched K1 {k1_cached} times")
+    feed, samp, loop = timing["feed"], timing["sample"], timing["loop"]
+    extract = [l - f - s for l, f, s in zip(loop, feed, samp)]
+    log("eval", f"cfg/eval_coco.yml (batch {cfg.TRAIN.BATCH_SIZE}, DTYPE "
+        f"{cfg.DTYPE}, pyramid {cfg.branch_sizes}, GF_DIM {cfg.GAN.GF_DIM}, "
+        f"lite encoder EMBEDDING_DIM {cfg.TEXT.EMBEDDING_DIM}) on "
+        f"{MANIFEST}, {EVAL_BATCHES} batches ({first['n']} samples), "
+        f"--real_stats all, frozen probe assets/frozen_lite.npz: the "
+        f"step-{TRAIN_STEPS} Stage-C checkpoint restored; every metric "
+        f"finite; FID {first['fid']:.6f}, IS {first['is_mean']:.4f}, frozen "
+        f"lite-IS {first['frozen_is_mean']:.4f}, R-precision "
+        f"{first['r_precision']:.4f} (real {first['r_precision_real']:.4f}),"
+        f" mean rank {first['retrieval_mean_rank']:.2f} (real "
+        f"{first['retrieval_real_mean_rank']:.2f})")
+    log("eval", f"K1 launches {k1} = {EVAL_BATCHES} batches x ({n_g} "
+        f"sampling + 4 lite applications x 8) + {n_batches} full-manifest "
+        f"batches x 8; the cached run {k1_cached}")
+    log("eval", f"second run: both caches read, every metric equal to the "
+        f"bit (cuDNN deterministic); wall {wall_s:.1f} s first, {wall2_s:.1f}"
+        f" s cached (set-up included)")
+    log("eval", f"synchronised ms per batch (batches 2-{len(loop)}): "
+        f"loop {_spread(loop[1:])}; host feed {_spread(feed[1:])}; Stage-C "
+        f"sampling {_spread(samp[1:])}; extraction and host copies (loop - "
+        f"feed - sampling) {_spread(extract[1:])}")
+    log("eval", f"full-manifest pass (2000 images, {n_batches} batches, "
+        f"feed and lite extractor, probe fit): {timing['pass_s'][0]:.2f} s;"
+        f" peak memory allocated {peak_gb:.2f} GiB")
+    return work, k1, {
+        "loop_ms": statistics.median(loop[1:]),
+        "feed_ms": statistics.median(feed[1:]),
+        "sample_ms": statistics.median(samp[1:]),
+        "extract_ms": statistics.median(extract[1:]),
+        "pass_s": timing["pass_s"][0], "peak_gb": peak_gb}
+
+
+def _spread(xs):
+    return (f"median {statistics.median(xs):.1f} (min {min(xs):.1f}, max "
+            f"{max(xs):.1f})")
+
+
+def phase_eval_k1(out_dir, work):
+    """Every K1 call of one eval batch (the caches of phase ``eval`` read,
+    so no full-manifest pass) against the twin, timed."""
+    import torch
+
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+
+    records = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda mod, args: records.append((mod, args[0].detach().clone()))
+        if isinstance(mod, FusedGroupNorm) else None)
+    try:
+        _eval_run(_eval_cfg(out_dir), os.path.join(work, "manifest.json"), 1,
+                  real_stats="all", frozen_probe=os.path.join(
+                      ROOT, "assets", "frozen_lite.npz"))
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        return _check_k1("eval_k1", records, "eval batch")
+
+
+def phase_strict(out_dir):
+    """``cli.evaluate`` in strict mode on 2 batches with a random
+    Inception-v3 written as a torchvision state dict and read back through
+    ``inception_pth`` (what ``--strict --inception_pth`` runs; with random
+    weights ``--force``'s numbers): the converter against the module, and
+    Inception's pool activations and probabilities at 299 px on a batch of
+    16 fakes and 16 reals, timed."""
+    import torch
+
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.models.inception_v3 import (
+        load_torchvision_checkpoint, torchvision_state_dict)
+    from objgan_tpu_torch.utils import fid_runner
+
+    cfg = _eval_cfg(out_dir)
+    _, model = fid_runner.make_inception_extractor(
+        generator=torch.Generator().manual_seed(7), device="cpu")
+    sd = torchvision_state_dict(model)
+    # what torchvision's file holds besides: the auxiliary head and the
+    # BatchNorm step counters, which the converter skips
+    sd["AuxLogits.fc.weight"] = torch.zeros(1000, 768)
+    sd["Conv2d_1a_3x3.bn.num_batches_tracked"] = torch.tensor(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "inception_v3.pth")
+        torch.save(sd, pth)
+        extract, loaded = fid_runner.make_inception_extractor(device="cuda")
+        load_torchvision_checkpoint(loaded, torch.load(pth,
+                                                       weights_only=True))
+        diff = [k for k, p in model.named_parameters()
+                if not torch.equal(p, dict(loaded.named_parameters())[k]
+                                   .cpu())]
+        check(not diff, f"the converted weights differ at {diff[:3]}")
+        metrics, text = _eval_run(cfg, os.path.join(ROOT, MANIFEST), 2,
+                                  strict=True, inception_pth=pth)
+    check(f"strict-inception (weights: {pth})" in text,
+          "evaluate did not run strict mode with the weights file")
+    bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+    check(not bad, f"non-finite strict metrics: {bad}")
+    feed, _, _ = build_feed(cfg, os.path.join(ROOT, MANIFEST), augment=False)
+    images = torch.cat([torch.from_numpy(next(feed)["images"][-1])
+                        for _ in range(2)]).cuda()
+    pool, probs = extract(images)
+    torch.cuda.synchronize()
+    check(tuple(pool.shape) == (32, 2048) and tuple(probs.shape)
+          == (32, 1000), f"strict features {tuple(pool.shape)}, "
+          f"{tuple(probs.shape)}")
+    check(bool(torch.isfinite(pool).all() and torch.isfinite(probs).all()),
+          "non-finite Inception features")
+    sums = float((probs.sum(-1) - 1).abs().max())
+    check(sums < 1e-4, f"probabilities sum to 1 within {sums:.3g}")
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract(images)
+        torch.cuda.synchronize()
+        ms.append(1000.0 * (time.perf_counter() - t0))
+    n_params = sum(1 for _ in model.parameters())
+    log("strict", f"a random Inception-v3 written as a torchvision state "
+        f"dict ({len(sd)} entries, AuxLogits and a step counter among "
+        f"them) and read back by the converter: {n_params} parameters "
+        f"equal; cli.evaluate --strict on 2 batches ({metrics['n']} "
+        f"samples): FID {metrics['fid']:.4f}, IS "
+        f"{metrics['is_mean']:.4f}, every metric finite")
+    log("strict", f"Inception-v3 at 299 px (bilinear from 256, no "
+        f"antialias), true fp32, on two batches of 16 real images (the "
+        f"work of 16 fakes and 16 reals): pool (32, 2048) and "
+        f"probabilities finite, rows sum to 1 within {sums:.2g}; "
+        f"synchronised ms per 32 images " + ", ".join(
+            f"{t:.1f}" for t in ms) + f"; median after the first "
+        f"{statistics.median(ms[1:]):.1f} ms")
+    return statistics.median(ms[1:])
+
+
+def phase_damsm_inception():
+    """DAMSM pretraining with ``TEXT.CNN_BACKBONE: inception`` at
+    ``cfg/damsm_coco.yml`` width through ``cli.pretrain_damsm`` for 2 steps
+    on the manifest feed: the backbone bitwise unmoved, the projections and
+    the text encoder moved, no Adam state for the backbone in the
+    checkpoint, the round trip bitwise."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.train.damsm import DamsmTrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_damsm_inc_")
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml")).merged(
+        {"OUTPUT_DIR": tmp, "DATA_DIR": os.path.join(ROOT, DATA_DIR),
+         "TEXT": {"CNN_BACKBONE": "inception"}})
+    feed, n_records, _ = build_feed(cfg, os.path.join(ROOT, MANIFEST),
+                                    with_masks=False)
+    cfg, steps = cli.apply_epoch_schedule(cfg, n_records, 2)
+    seed = DamsmTrainer(cfg).init_state(
+        torch.Generator().manual_seed(cfg.RNG_SEED))
+    before = {k: v.detach().clone() for k, v in seed.named_parameters()}
+    n_backbone = sum(k.startswith("img_enc.backbone.") for k in before)
+    del seed
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.pretrain_damsm(cfg, feed, max_steps=steps,
+                                     device="cuda", log_every=1)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(_counts() == (0, 0, 0), f"launches {_counts()}: Inception has no "
+          "GroupNorm")
+    seen = _metric_lines(out.getvalue())
+    check(len(seen) == steps and all(math.isfinite(v) for m in seen
+                                     for v in m.values()),
+          "DAMSM metrics missing or non-finite")
+    now = dict(trainer.named_parameters())
+    moved_backbone = [k for k in before if k.startswith("img_enc.backbone.")
+                      and not torch.equal(before[k], now[k].detach().cpu())]
+    check(not moved_backbone, f"the backbone moved at {moved_backbone[:3]}")
+    moved = _check_moved("damsm_inception", {
+        k: v for k, v in before.items()
+        if not k.startswith("img_enc.backbone.")}, trainer,
+        ("text_enc.", "img_enc.emb_features.", "img_enc.emb_cnn_code."))
+    ckpt_dir = os.path.join(tmp, f"{cfg.CONFIG_NAME}_damsm", "ckpt")
+    saved = torch.load(os.path.join(ckpt_dir, str(steps), "state.pt"),
+                       map_location="cpu", weights_only=True)
+    adam_backbone = [k for k in saved
+                     if k.startswith("optim.img_enc.backbone.")]
+    check(not adam_backbone, f"Adam state for the backbone: "
+          f"{adam_backbone[:3]}")
+    n_adam = sum(k.startswith("optim.img_enc.") for k in saved)
+    batch = cli.to_device(next(cli._finest_scale_only(feed)), "cuda")
+    keep = trainer.text_enc.keep_mask(
+        batch["captions"], torch.Generator("cuda").manual_seed(123))
+    n_tensors = _check_round_trip(
+        "damsm_inception", trainer, DamsmTrainer(cfg).init_state(
+            torch.Generator().manual_seed(cfg.RNG_SEED + 1)).cuda(),
+        ckpt_dir, steps, lambda tr: tr.train_step(batch, keep))
+    step_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, keep)
+        torch.cuda.synchronize()
+        step_ms.append(1000.0 * (time.perf_counter() - t0))
+    times = [1000.0 / m.pop("steps_per_sec") for m in seen]
+    log("damsm_inception", f"cfg/damsm_coco.yml with TEXT.CNN_BACKBONE "
+        f"inception (batch {cfg.TRAIN.BATCH_SIZE}, 256 px resized to 299): "
+        f"cli.pretrain_damsm took {steps} steps on the manifest feed in "
+        f"{wall_s:.1f} s; finite losses (last damsm_total "
+        f"{seen[-1]['damsm_total']:.4g}); all {n_backbone} backbone tensors "
+        f"bitwise unmoved, the text encoder and projections moved ({moved}); "
+        f"no K1 launch; the checkpoint holds Adam state for the projections "
+        f"only ({n_adam} entries, none for the backbone)")
+    log("damsm_inception", f"checkpoint restored into a fresh trainer: all "
+        f"{n_tensors} tensors bitwise equal, one more step from each bitwise "
+        f"equal; ms per step of the loop " + ", ".join(
+            f"{t:.1f}" for t in times) + "; device step on a resident batch "
+        + ", ".join(f"{t:.1f}" for t in step_ms) + f"; peak memory "
+        f"allocated {peak_gb:.2f} GiB")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_shape_vgg(shape_ms):
+    """Stage B with ``SHAPE.PERCEPTUAL: vgg`` at ``cfg/shape_coco.yml``
+    width through ``cli.train_shape`` for 2 steps on the manifest: finite
+    losses with the perceptual term, VGG unmoved, K1 11 times a step; the
+    device step against phase ``shape``'s."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.train.common import step_generator
+    from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vgg_")
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "shape_coco.yml")).merged(
+        {"OUTPUT_DIR": tmp, "DATA_DIR": os.path.join(ROOT, DATA_DIR),
+         "SHAPE": {"PERCEPTUAL": "vgg"}})
+    feed, n_records, _ = build_feed(cfg, os.path.join(ROOT, MANIFEST),
+                                    with_images=False)
+    cfg, steps = cli.apply_epoch_schedule(cfg, n_records, 2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        seed = ShapeTrainer(cfg).init_state(
+            torch.Generator().manual_seed(cfg.RNG_SEED))
+    before = {k: v.detach().clone() for k, v in seed.named_parameters()}
+    del seed
+    trainer, seen, counts, calls, wall_s, peak_gb = _run_stage(
+        "shape_vgg", cli.train_shape, cfg, feed, steps, (FusedGroupNorm,))
+    check(counts[0] == 11 * steps == calls[FusedGroupNorm],
+          f"K1 launched {counts[0]} times for {calls[FusedGroupNorm]} "
+          f"GroupNorm calls in {steps} steps (expected 11 per step)")
+    check(all("shape_perceptual" in m for m in seen),
+          "no perceptual term in the metrics")
+    now = dict(trainer.named_parameters())
+    moved_vgg = [k for k in before if k.startswith("vgg.")
+                 and not torch.equal(before[k], now[k].detach().cpu())]
+    check(not moved_vgg, f"VGG moved at {moved_vgg[:3]}")
+    moved = _check_moved("shape_vgg", before, trainer, ("g.", "d."))
+    saved = os.path.join(tmp, f"{cfg.CONFIG_NAME}_shape", "ckpt", str(steps),
+                         "state.pt")
+    adam_vgg = [k for k in torch.load(saved, map_location="cpu",
+                                      weights_only=True)
+                if k.startswith("optim.vgg.")]
+    check(not adam_vgg, f"Adam state for VGG: {adam_vgg[:3]}")
+    batch = cli.to_device(next(feed), "cuda")
+    z = shape_noise(cfg, cfg.TRAIN.BATCH_SIZE, step_generator(
+        cfg.RNG_SEED, 999, "cuda"), "cuda")
+    step_ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, z)
+        torch.cuda.synchronize()
+        step_ms.append(1000.0 * (time.perf_counter() - t0))
+    device_ms = statistics.median(step_ms[1:])
+    n_vgg = sum(p.numel() for p in trainer.vgg.parameters()) / 1e6
+    log("shape_vgg", f"cfg/shape_coco.yml with SHAPE.PERCEPTUAL vgg (VGG-16 "
+        f"to relu4_3, random weights, {n_vgg:.2f} M parameters): "
+        f"cli.train_shape took {steps} steps in {wall_s:.1f} s; "
+        f"finite losses (last shape_g {seen[-1]['shape_g']:.4g}, "
+        f"shape_perceptual {seen[-1]['shape_perceptual']:.4g}); G and D "
+        f"moved ({moved}), VGG bitwise unmoved and without Adam state; K1 "
+        f"{counts[0]} launches, 11 per "
+        f"step")
+    log("shape_vgg", "device step on a resident batch, synchronised ms: "
+        + ", ".join(f"{t:.1f}" for t in step_ms) + f"; median after the "
+        f"first {device_ms:.1f} ms against phase shape's {shape_ms:.1f} ms "
+        f"(fm mode); peak memory allocated {peak_gb:.2f} GiB")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return device_ms
+
+
+def phase_small_eval():
+    """The tiny fp32 eval on the GPU (K1 in every lite encoder) against
+    the CPU (twins), same checkpoint, batches and noise: every metric."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.checkpoint import CheckpointManager
+    from objgan_tpu_torch.core.config import tiny_test_config
+    from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.train.gan import train_noise
+
+    cfg = tiny_test_config().merged({"DTYPE": "float32",
+                                     "TRAIN": {"BATCH_SIZE": 4}})
+    gen = torch.Generator().manual_seed(3)
+    batches = [synthetic_batch(cfg, gen) for _ in range(2)]
+    noises = [train_noise(cfg, 4, gen, "cpu") for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cfg.merged({"OUTPUT_DIR": tmp})
+        CheckpointManager(os.path.join(tmp, "objgan_gan", "ckpt")).save(
+            1, cli.make_trainer(cfg, "cpu"))
+        results = {}
+        for device in ("cpu", "cuda"):
+            before = _counts()[0]
+            with contextlib.redirect_stdout(io.StringIO()):
+                results[device] = cli.evaluate(
+                    cfg, iter(batches), 2, device=device,
+                    noise=lambda i, b, device=device: {
+                        k: v.to(device) for k, v in noises[i].items()})
+            torch.cuda.synchronize()
+            results[device + "_k1"] = _counts()[0] - before
+    want, got = results["cpu"], results["cuda"]
+    errs = {k: abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items()}
+    worst = max(errs, key=errs.get)
+    check(results["cpu_k1"] == 0 and results["cuda_k1"] > 0,
+          f"K1 launches: CPU {results['cpu_k1']}, GPU {results['cuda_k1']}")
+    check(errs[worst] <= 1e-3, f"tiny eval GPU vs CPU: {worst} differs by "
+          f"{errs[worst]:.3g} relative")
+    log("small_eval", f"tiny fp32 eval (2 batches of 4), GPU "
+        f"({results['cuda_k1']} K1 launches) vs CPU (twins), same "
+        f"checkpoint, batches and noise: "
+        f"{len(want)} metrics within {errs[worst]:.3g} relative (worst "
+        f"{worst}; limit 1e-3); FID {got['fid']:.6f} vs {want['fid']:.6f}")
+
+
 def main():
     import torch
 
@@ -1857,21 +2387,30 @@ def main():
     torch.cuda.empty_cache()
     phase_small_shape()
     phase_compose(out_dir, vocab)
+    work, eval_launches, _ = phase_eval(out_dir)
+    k1_eval_err, k1_eval = phase_eval_k1(out_dir, work)
+    phase_strict(out_dir)
+    shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_damsm_inception()
+    phase_shape_vgg(shape["device_ms"])
+    phase_small_eval()
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": max(k1_err, k1_train_err, k1_damsm_err,
-                           k1_shape_err),
+                           k1_shape_err, k1_eval_err),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": k1["library_ms"],
         "regimes": k1["regimes"], "ms_10_per_graph": k1["ms_10_per_graph"],
         "library_ms_10_per_graph": k1["library_ms_10_per_graph"],
-        # K1 runs on four paths: the keys above are per served batch (the
+        # K1 runs on five paths: the keys above are per served batch (the
         # error the largest of the paths'), "train" per Stage-C train step,
-        # "damsm" per DAMSM step, "shape" per Stage-B step; the library
-        # time takes two calls (F.group_norm, F.glu) for a GN+GLU
+        # "damsm" per DAMSM step, "shape" per Stage-B step, "eval" per eval
+        # batch (launches: the whole eval run); the library time takes two
+        # calls (F.group_norm, F.glu) for a GN+GLU
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "library_ms": r["library_ms"], "regimes": r["regimes"],
@@ -1880,7 +2419,8 @@ def main():
            for path, launched, err, r in (
                ("train", train["k1"], k1_train_err, k1_train),
                ("damsm", damsm_k1_launches, k1_damsm_err, k1_damsm),
-               ("shape", shape["k1"], k1_shape_err, k1_shape))},
+               ("shape", shape["k1"], k1_shape_err, k1_shape),
+               ("eval", eval_launches, k1_eval_err, k1_eval))},
     }]
     for name, replaces, key in (("roi_align_fwd", K2_REPLACES, "K2"),
                                 ("roi_align_bwd", K3_REPLACES, "K3")):

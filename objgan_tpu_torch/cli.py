@@ -1,11 +1,13 @@
 """Training, sampling and evaluation runners behind the port's entry
 points: DAMSM pretraining (``python -m objgan_tpu_torch.pretrain_damsm``),
 Stage A (``box_train``, ``box_sample``), Stage B (``shape_main``) and
-Stage C, train or sample (``gan_main``). Port of ``objgan_tpu/cli.py``:
-``_out_dir``, ``_already_trained``, ``apply_epoch_schedule``, ``_run_loop``
-(one device, one step per call), ``load_damsm_encoders``,
-``pretrain_damsm``, ``train_gan``, ``sample_gan``, ``train_box``,
-``sample_box``, ``eval_box``, ``train_shape`` and ``eval_shape``.
+Stage C, train or sample (``gan_main``), and Stage C's quality evaluation
+(``eval``). Port of ``objgan_tpu/cli.py``: ``_out_dir``,
+``_already_trained``, ``apply_epoch_schedule``, ``_run_loop`` (one device,
+one step per call), ``load_damsm_encoders``, ``pretrain_damsm``,
+``train_gan``, ``sample_gan``, ``train_box``, ``sample_box``, ``eval_box``,
+``train_shape`` and ``eval_shape``; and of ``gan/eval.py``'s body,
+``evaluate``.
 
 Each stage writes under ``OUTPUT_DIR/<CONFIG_NAME>_<stage>``: its
 checkpoints (``ckpt/<step>``, keep-3), ``<stage>_metrics.csv`` and the
@@ -549,3 +551,271 @@ def eval_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     for k, v in sorted(metrics.items()):
         print(f"{k}: {v:.4f}")
     return metrics
+
+
+# -- Stage C's quality evaluation (gan/eval.py) -------------------------------
+
+FROZEN_PROBE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "frozen_lite.npz")
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A plain tensor state dict from a ``.pth`` (unwrapping a
+    ``state_dict`` or ``model`` entry); ``weights_only``, so a file that
+    needs arbitrary pickle code is refused."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return sd
+
+
+def evaluate(cfg: Config, feed: Optional[Iterator[Dict]] = None,
+             num_batches: int = 10, *, strict: bool = False,
+             real_stats: str = "paired", manifest: Optional[str] = None,
+             inception_pth: Optional[str] = None,
+             frozen_probe: Optional[str] = None, raw_params: bool = False,
+             eval_seed: Optional[int] = None, feed_vocab=None,
+             noise: Optional[Callable[[int, int], Dict]] = None,
+             device="cuda") -> Dict[str, float]:
+    """FID, IS, the frozen lite-IS, R-precision and full-pool retrieval of
+    the Stage-C generator of ``TRAIN.NET_G`` (default this config's
+    training output), over ``num_batches`` batches of ``feed`` (a
+    held-out manifest feed; synthetic batches when None), printed in
+    ``gan/eval.py``'s words and returned.
+
+    Lite mode scores the features of a DAMSM lite encoder with fresh
+    weights (seed 0) and fits ``OBJ.NUM_CLASSES``-way probe on the real
+    images for IS; ``strict`` scores Inception-v3 pool activations and
+    logits (``inception_pth``: torchvision weights; random without). The
+    real side comes from the same batches (``real_stats="paired"``) or
+    from one augmentation-free pass over every image of ``manifest``
+    (``"all"``), cached next to it with the probe. ``frozen_probe``: the
+    frozen artifact (default ``assets/frozen_lite.npz``; "off" skips it),
+    lite mode only. Batch i's noise is ``noise(i, batch_size)`` ({"z",
+    "ca_eps"}), by default drawn from (``eval_seed`` or ``RNG_SEED``,
+    1000 + i), which also orders a synthetic feed. ``raw_params`` samples
+    with the raw generator instead of the EMA one. Features are extracted
+    as the loop samples, so only (B, D) rows stay resident."""
+    from objgan_tpu_torch.freeze_probe import make_frozen_extractor
+    from objgan_tpu_torch.models.inception_v3 import (
+        load_torchvision_checkpoint)
+    from objgan_tpu_torch.utils import fid_runner
+    from objgan_tpu_torch.utils.eval_metrics import (activation_stats,
+                                                     fit_class_probe,
+                                                     inception_score,
+                                                     probe_probs,
+                                                     r_precision,
+                                                     retrieval_stats)
+
+    if real_stats not in ("paired", "all"):
+        raise ValueError(f"real_stats must be 'paired' or 'all', got "
+                         f"{real_stats!r}")
+    if real_stats == "all" and not manifest:
+        raise ValueError("real_stats='all' needs a manifest: the "
+                         "whole-dataset real side is defined by one")
+    device = torch.device(device)
+    # eval is the non-training path: with B_VALIDATION the manifest split
+    # keys off TRAIN.FLAG, so a training cfg would score the TRAIN split
+    cfg = cfg.merged({"TRAIN": {"FLAG": False}})
+    seed = cfg.RNG_SEED if eval_seed is None else eval_seed
+    if eval_seed is not None:
+        print(f"eval_seed: {eval_seed} (held-out batch order + latents "
+              f"only; the split and the initialisation stay at "
+              f"cfg.RNG_SEED={cfg.RNG_SEED}; the real-side statistics stay "
+              f"fixed only with --real_stats all — paired mode computes "
+              f"them from the reordered batches)")
+    text_sd, img_sd = load_damsm_encoders(cfg)
+    trainer = make_trainer(cfg, device, text_sd, img_sd)
+    ckpt_dir = cfg.TRAIN.NET_G or os.path.join(
+        cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_gan", "ckpt")
+    restored = (CheckpointManager(ckpt_dir).restore_latest(trainer)
+                if latest_step_in(ckpt_dir) is not None else None)
+    if restored is not None:
+        print(f"evaluating checkpoint at step {restored}")
+    # R-precision means something only with trained DAMSM encoders (from
+    # the Stage-C checkpoint or from DAMSM pretraining)
+    encoders_trained = restored is not None or text_sd is not None
+
+    if strict:
+        extractor, inception = fid_runner.make_inception_extractor(
+            device=device)
+        if inception_pth:
+            load_torchvision_checkpoint(
+                inception, load_torch_state_dict(inception_pth))
+            mode = f"strict-inception (weights: {inception_pth})"
+        else:
+            mode = "strict-inception (RANDOM WEIGHTS — --force)"
+    else:
+        extractor, _ = fid_runner.make_lite_extractor(cfg, device=device)
+        mode = "lite (framework encoder)"
+
+    # the frozen cross-manifest lite-IS: a second, frozen feature space and
+    # class head, so the IS column compares across manifests
+    frozen = None
+    if not strict and frozen_probe != "off":
+        fp_path = frozen_probe or FROZEN_PROBE
+        if os.path.exists(fp_path):
+            fr_extract, fr_probe, _ = make_frozen_extractor(fp_path, device)
+            frozen = {"extract": fr_extract, "probe": fr_probe,
+                      "path": fp_path, "feats": []}
+        elif frozen_probe:
+            print(f"WARNING: --frozen_probe {fp_path} not found — skipping "
+                  "frozen lite-IS", file=sys.stderr)
+
+    if feed is None:
+        feed = synthetic_feed(cfg.replace(RNG_SEED=seed), device)
+    if noise is None:
+        def noise(i, b):
+            return train_noise(cfg, b, step_generator(seed, 1000 + i, device,
+                                                      _NOISE), device)
+
+    host = fid_runner.to_numpy
+    paired_reals = real_stats == "paired"
+    fake_acts, fake_probs, real_acts, real_labels = [], [], [], []
+    sents, globals_, globals_real = [], [], []
+    for i, batch in enumerate(itertools.islice(feed, num_batches)):
+        if paired_reals:
+            real_labels.append(fid_runner.primary_labels(batch))
+        batch = to_device(batch, device)
+        nz = noise(i, batch["captions"].shape[0])
+        fake = trainer.sample(batch, nz["z"], nz["ca_eps"],
+                              use_ema=not raw_params)["images"][-1]
+        real = batch["images"][-1]
+        fa, fp = extractor(fake)
+        fake_acts.append(host(fa))
+        fake_probs.append(host(fp))
+        if frozen is not None:
+            frozen["feats"].append(host(frozen["extract"](fake)))
+        if paired_reals:
+            real_acts.append(host(extractor(real)[0]))
+        with torch.no_grad():
+            _, sent = trainer.text_enc(batch["captions"], batch["cap_lens"])
+            sents.append(host(sent))
+            globals_.append(host(trainer.img_enc(fake)[1]))
+            globals_real.append(host(trainer.img_enc(real)[1]))
+    n_fake = sum(len(a) for a in fake_acts)
+
+    n_real_unique = None
+    stats = None
+    probe = None  # the lite-IS class head, fit on real images
+    if paired_reals:
+        stats = activation_stats(np.concatenate(real_acts))
+        if not strict:
+            probe = fit_class_probe(np.concatenate(real_acts),
+                                    np.concatenate(real_labels),
+                                    cfg.OBJ.NUM_CLASSES)
+    else:
+        stats, probe, n_real_unique = _manifest_real_side(
+            cfg, manifest, mode, inception_pth, extractor, strict,
+            feed_vocab)
+
+    fake_acts_all = np.concatenate(fake_acts)
+    if probe is not None:
+        # lite mode: p(y|x) from the real-image class probe
+        fake_probs_all = probe_probs(probe, fake_acts_all)
+        print(f"lite-IS probe: {cfg.OBJ.NUM_CLASSES}-way head on real "
+              f"images — train acc {float(probe['train_acc']):.3f}, "
+              f"holdout acc {float(probe['holdout_acc']):.3f}")
+    else:  # strict mode: Inception's own softmax
+        fake_probs_all = np.concatenate(fake_probs)
+    fid, (is_m, is_s) = fid_runner.compute_fid_is(
+        [], [], extractor, real_stats=stats,
+        fake_activations=(fake_acts_all, fake_probs_all))
+    sents_all = np.concatenate(sents)
+    rp = r_precision(sents_all, np.concatenate(globals_))
+    # the same metric on the real images: what any generator can reach
+    # under this protocol and encoder
+    rp_ceiling = r_precision(sents_all, np.concatenate(globals_real))
+    rs_fake = retrieval_stats(sents_all, np.concatenate(globals_))
+    rs_real = retrieval_stats(sents_all, np.concatenate(globals_real))
+
+    is_tag = "" if strict else (
+        " [lite-probe: class head on lite features — relative, NOT "
+        "comparable to published IS]")
+    rp_tag = "" if encoders_trained else (
+        " [untrained encoders — meaningless until DAMSM is pretrained]")
+    if raw_params:
+        mode += "; RAW generator params (EMA bypassed)"
+    print(f"eval over {n_fake} samples [{mode}]")
+    if n_real_unique is not None:
+        print(f"real-side FID statistics: full manifest, {n_real_unique} "
+              f"unique images (augmentation-free)")
+    if n_fake < 2048:
+        print(f"NOTE: FID over {n_fake} samples is a relative/debug number "
+              f"— the covariance estimate needs thousands of samples "
+              f"(standard protocol: 5k-50k) for publication-comparable "
+              f"values")
+    print(f"FID: {fid:.3f}")
+    print(f"IS: {is_m:.3f} +/- {is_s:.3f}{is_tag}")
+    result = {"fid": fid, "is_mean": is_m, "is_std": is_s, "n": n_fake,
+              "r_precision": rp, "r_precision_real": rp_ceiling,
+              **{f"retrieval_{k}": v for k, v in rs_fake.items()},
+              **{f"retrieval_real_{k}": v for k, v in rs_real.items()}}
+    if frozen is not None:
+        fz_m, fz_s = inception_score(probe_probs(
+            frozen["probe"], np.concatenate(frozen["feats"])))
+        print(f"frozen lite-IS: {fz_m:.3f} +/- {fz_s:.3f} "
+              f"[cross-manifest scale — frozen encoder+probe: "
+              f"{os.path.relpath(frozen['path'])}]")
+        result.update(frozen_is_mean=fz_m, frozen_is_std=fz_s)
+    print(f"R-precision: {rp:.3f}{rp_tag}")
+    print(f"R-precision (real-image ceiling): {rp_ceiling:.3f}{rp_tag}")
+    print(f"Retrieval mean rank (full pool {rs_fake['pool']}): "
+          f"{rs_fake['mean_rank']:.2f} | median "
+          f"{rs_fake['median_rank']:.0f} | R@5 "
+          f"{rs_fake['recall_at_5']:.3f}{rp_tag}")
+    print(f"Retrieval mean rank (real-image ceiling): "
+          f"{rs_real['mean_rank']:.2f} | median "
+          f"{rs_real['median_rank']:.0f} | R@5 "
+          f"{rs_real['recall_at_5']:.3f}{rp_tag}")
+    return result
+
+
+def _manifest_real_side(cfg: Config, manifest: str, mode: str,
+                        inception_pth: Optional[str], extractor,
+                        strict: bool, feed_vocab):
+    """(stats, probe or None, number of records) of one augmentation-free
+    pass over every image of ``manifest`` (the trailing batch cut at the
+    epoch's end), read from or written to the caches next to it: the
+    statistics, and in lite mode the probe (keyed by the class count too).
+    Only feature rows are kept, never the dataset's pixels."""
+    from objgan_tpu_torch.data.pipeline import CocoFeed, load_records_json
+    from objgan_tpu_torch.data.tokenizer import Vocab
+    from objgan_tpu_torch.utils import fid_runner
+
+    records = load_records_json(manifest)
+    key = dict(records=records, image_root=cfg.DATA_DIR)
+    cache_path = fid_runner.real_stats_cache_path(
+        cfg, manifest, len(records), mode, inception_pth, **key)
+    probe_path = fid_runner.real_stats_cache_path(
+        cfg, manifest, len(records), mode, inception_pth, kind="lite_probe",
+        n_classes=cfg.OBJ.NUM_CLASSES, **key)
+    stats = probe = None
+    if os.path.exists(cache_path):
+        with np.load(cache_path) as z:
+            stats = (z["mu"], z["cov"])
+        print(f"real-side stats: cached ({cache_path})")
+    if not strict and os.path.exists(probe_path):
+        with np.load(probe_path) as z:
+            probe = dict(z)
+        print(f"lite-IS probe: cached ({probe_path})")
+    need_probe = not strict and probe is None
+    if stats is None or need_probe:
+        # masks are never read by the pass: no per-object rasterisation
+        vocab = feed_vocab or Vocab.build(c for r in records
+                                          for c in r["captions"])
+        full = CocoFeed(cfg, records, vocab, seed=cfg.RNG_SEED,
+                        augment=False, with_masks=False)
+        got_stats, fitted = fid_runner.real_stats_and_probe(
+            fid_runner.unique_epoch_batches(full, len(records)), extractor,
+            cfg.OBJ.NUM_CLASSES, need_stats=stats is None,
+            need_probe=need_probe)
+        if got_stats is not None:
+            stats = got_stats
+            fid_runner.save_npz_atomic(cache_path, mu=stats[0],
+                                       cov=stats[1])
+        if fitted is not None:
+            probe = fitted
+            fid_runner.save_npz_atomic(probe_path, **fitted)
+    return stats, probe, len(records)

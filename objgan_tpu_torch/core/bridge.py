@@ -13,10 +13,16 @@ imports JAX, so the rules are restated here):
 * LSTM ``w_ih``, ``w_hh``, ``b`` (and ``fwd_*`` / ``bwd_*``) keep their
   names and the JAX layout, single bias included.
 
+The same names carry the Inception-v3 (``models/inception_v3.py``: the
+``bn_*`` statistics keep their names), VGG-16 (``models/vgg.py``) and the
+frozen lite-IS artifact's encoder (``freeze_probe.py``) across.
+``torch_to_jax`` is the inverse: a module's parameters as a JAX tree.
+
 ``load_gan_state`` loads a whole Stage-C train state into the port's
-trainer, ``load_damsm_state`` a DAMSM pretraining state (both with fresh
-optimisers), ``load_box_state`` and ``load_shape_state`` a Stage-A and a
-Stage-B state with their Adam moments and step.
+trainer (with fresh optimisers); ``load_damsm_state``, ``load_box_state``
+and ``load_shape_state`` a DAMSM, Stage-A and Stage-B state with their
+Adam moments and step (optax's ``masked`` state of an inception DAMSM
+backbone included: only the projections have moments).
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, Mapping):
             out.update(_flatten(val, path))
+        elif isinstance(val, tuple) and not val:
+            continue  # optax.masked's MaskedNode: a leaf with no state
         else:
             out[path] = np.asarray(val)
     return out
@@ -62,6 +70,32 @@ def jax_to_torch(tree: Mapping) -> Dict[str, np.ndarray]:
         name, val = _to_torch(leaf, arr)
         out[".".join([*mods, name])] = np.ascontiguousarray(val)
     return out
+
+
+def torch_to_jax(module: nn.Module) -> Dict:
+    """``module``'s parameters as a JAX (Linen) param tree of numpy arrays,
+    without the ``params`` collection: the inverse of ``jax_to_torch`` for
+    the port's ``Dense``, ``Conv``, ``Embed`` and ``FusedGroupNorm``; any
+    other parameter keeps its name and layout."""
+    from objgan_tpu_torch.core.layers import Conv, Dense, Embed
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+
+    tree: Dict = {}
+    for mod_name, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            arr = p.detach().cpu().float().numpy()
+            if isinstance(mod, (Dense, Conv)) and name == "weight":
+                name = "kernel"
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            elif isinstance(mod, Embed) and name == "weight":
+                name = "embedding"
+            elif isinstance(mod, FusedGroupNorm) and name == "weight":
+                name = "scale"
+            node = tree
+            for part in filter(None, mod_name.split(".")):
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
@@ -105,12 +139,15 @@ def load_gan_state(trainer: nn.Module, state) -> None:
 
 
 def load_damsm_state(trainer: nn.Module, state) -> None:
-    """Load a JAX ``DamsmTrainState`` (its ``text_params`` and
-    ``img_params``, as numpy or JAX arrays) into a
-    ``train.damsm.DamsmTrainer``. The optimisers start fresh, at step 0."""
+    """Load a JAX ``DamsmTrainState`` (``text_params``, ``img_params``,
+    their optimiser states and ``step``) into a
+    ``train.damsm.DamsmTrainer``."""
+    trainer.reset_optimizers()
     load_jax_params(trainer.text_enc, state.text_params)
     load_jax_params(trainer.img_enc, state.img_params)
-    trainer.reset_optimizers()
+    _load_adam(trainer.text_enc, trainer.text_opt, state.text_opt)
+    _load_adam(trainer.img_enc, trainer.img_opt, state.img_opt)
+    trainer.step = int(np.asarray(state.step))
 
 
 def _scale_by_adam(opt_state):
@@ -156,11 +193,13 @@ def load_box_state(trainer: nn.Module, state) -> None:
 
 def load_shape_state(trainer: nn.Module, state) -> None:
     """Load a JAX ``ShapeTrainState`` (``g_params``, ``d_params``, their
-    Adam states, ``label_table`` and ``step``) into a
-    ``train.shape.ShapeTrainer``."""
+    Adam states, ``label_table``, ``step`` and, in ``vgg`` mode,
+    ``vgg_params``) into a ``train.shape.ShapeTrainer``."""
     trainer.reset_optimizers()
     load_jax_params(trainer.g, state.g_params)
     load_jax_params(trainer.d, state.d_params)
+    if trainer.vgg is not None:
+        load_jax_params(trainer.vgg, state.vgg_params)
     _load_adam(trainer.g, trainer.g_opt, state.g_opt)
     _load_adam(trainer.d, trainer.d_opt, state.d_opt)
     with torch.no_grad():

@@ -4,9 +4,10 @@
 ((out, in), (out, in, kh, kw), (num, features)) and compute like their Linen
 counterparts: a layer built with a compute ``dtype`` casts its input and
 weights to it (the params stay fp32), and ``Conv`` pads like Linen's
-``padding="SAME"``. Activations are NHWC tensors; a conv runs on the
-``permute(0, 3, 1, 2)`` view, which is NCHW in ``channels_last`` memory, so
-cuDNN runs it NHWC and the permutes are free.
+``padding="SAME"`` unless given explicit pads. Activations are NHWC
+tensors; a conv runs on the ``permute(0, 3, 1, 2)`` view, which is NCHW
+in ``channels_last`` memory, so cuDNN runs it NHWC and the permutes are
+free.
 
 Fresh weights use the JAX package's initialisers, drawn from an explicit
 ``torch.Generator``: lecun-normal kernels, orthogonal recurrent kernels,
@@ -17,7 +18,7 @@ walks a module tree in registration order.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -78,14 +79,18 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """Linen ``nn.Conv`` with ``padding="SAME"`` on NHWC input."""
+    """Linen ``nn.Conv`` on NHWC input: ``padding="SAME"`` by default, or
+    explicit ((top, bottom), (left, right)) pads as Linen takes them
+    (((0, 0), (0, 0)) is ``VALID``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  kernel: Sequence[int], stride: int = 1, bias: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 padding: Union[str, Sequence[Sequence[int]]] = "SAME"):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
+        self.padding = padding
         kh, kw = kernel
         self.weight = nn.Parameter(torch.empty(out_features, in_features, kh,
                                                kw))
@@ -98,10 +103,13 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
-        _, h, w, _ = x.shape
-        kh, kw = self.weight.shape[2:]
-        ph = _same_pads(h, kh, self.stride)
-        pw = _same_pads(w, kw, self.stride)
+        if self.padding == "SAME":
+            _, h, w, _ = x.shape
+            kh, kw = self.weight.shape[2:]
+            ph = _same_pads(h, kh, self.stride)
+            pw = _same_pads(w, kw, self.stride)
+        else:
+            ph, pw = self.padding
         xc = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])

@@ -16,7 +16,8 @@ from objgan_tpu_torch.data.tokenizer import Vocab
 def build_feed(cfg: Config, manifest: Optional[str],
                captions_pickle: Optional[str] = None,
                image_root: Optional[str] = None, with_images: bool = True,
-               with_masks: bool = True
+               with_masks: bool = True, seed: Optional[int] = None,
+               augment: Optional[bool] = None
                ) -> Tuple[Optional[Iterator], int, Optional[Vocab]]:
     """``(feed or None, number of records, vocab or None)``; no manifest
     gives ``(None, 0, None)`` and the caller feeds synthetic batches.
@@ -24,8 +25,11 @@ def build_feed(cfg: Config, manifest: Optional[str],
     The vocabulary is built from the manifest's captions, or read from the
     lineage's ``captions_pickle``. With ``cfg.B_VALIDATION`` training
     (``TRAIN.FLAG``) takes the train portion of ``split_records`` and
-    sampling the held-out one. Only a training feed augments (flip, <unk>
-    word dropout). ``image_root``: the directory the records'
+    sampling the held-out one; that split always keys on ``RNG_SEED``.
+    ``seed`` (default ``RNG_SEED``) orders the batches only: the eval's
+    ``--eval_seed``. Only a training feed augments (flip, <unk> word
+    dropout) unless ``augment`` says otherwise (the eval's
+    ``--aug_eval``). ``image_root``: the directory the records'
     ``image_file`` paths are relative to, by default ``cfg.DATA_DIR`` (the
     entry points' ``--data_dir`` sets it), as in the JAX package."""
     if not manifest:
@@ -39,8 +43,10 @@ def build_feed(cfg: Config, manifest: Optional[str],
         print(f"B_VALIDATION split: {len(train_recs)} train / "
               f"{len(val_recs)} held-out; using "
               f"{'train' if cfg.TRAIN.FLAG else 'held-out'}")
-    feed = CocoFeed(cfg, records, vocab, seed=cfg.RNG_SEED,
+    feed = CocoFeed(cfg, records, vocab,
+                    seed=cfg.RNG_SEED if seed is None else seed,
                     with_images=with_images, with_masks=with_masks,
-                    augment=bool(cfg.TRAIN.FLAG),
+                    augment=(bool(cfg.TRAIN.FLAG) if augment is None
+                             else augment),
                     image_root=image_root or cfg.DATA_DIR)
     return iter(feed), len(records), vocab

@@ -17,8 +17,8 @@ from __future__ import annotations
 import argparse
 
 _LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
-          "Grain multi-worker feed (--grain), loading a JAX (Orbax) "
-          "checkpoint, and the 'inception' image backbone.")
+          "Grain multi-worker feed (--grain) and loading a JAX (Orbax) "
+          "checkpoint.")
 
 
 def main(argv=None) -> None:

@@ -9,7 +9,9 @@
   grid at 256 px; region features (B, R*R, D) and a global feature (B, D),
   both projected to ``TEXT.EMBEDDING_DIM``, fp32.
 
-Both run fp32. The ``inception`` backbone is not ported yet.
+Both run fp32. ``TEXT.CNN_BACKBONE: inception`` builds
+``models/inception_v3.py::InceptionEncoder`` instead of ``CNNEncoder``: a
+frozen Inception-v3 with the same two projections.
 """
 
 from __future__ import annotations
@@ -113,10 +115,11 @@ class CNNEncoder(nn.Module):
         return reg.reshape(b, r1 * r2, d).float(), g.float()
 
 
-def build_image_encoder(cfg: Config, base_width: int = 32) -> CNNEncoder:
+def build_image_encoder(cfg: Config, base_width: int = 32) -> nn.Module:
+    """The DAMSM image encoder ``TEXT.CNN_BACKBONE`` names: ``lite``
+    (``CNNEncoder`` at ``base_width``) or ``inception``."""
     if cfg.TEXT.CNN_BACKBONE == "inception":
-        raise NotImplementedError(
-            "TEXT.CNN_BACKBONE 'inception' (models/inception_v3.py) is not "
-            "ported to objgan_tpu_torch yet; it is queued in ROADMAP.md "
-            "(queue 1). Use 'lite'.")
+        from objgan_tpu_torch.models.inception_v3 import InceptionEncoder
+
+        return InceptionEncoder(cfg.TEXT.EMBEDDING_DIM)
     return CNNEncoder(cfg.TEXT.EMBEDDING_DIM, base_width=base_width)

@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
-          "Grain multi-worker feed (--grain) and the 'inception' image "
-          "backbone.")
+_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire) and "
+          "the Grain multi-worker feed (--grain).")
 
 
 def main(argv=None) -> None:

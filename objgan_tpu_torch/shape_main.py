@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
-          "VGG perceptual term (SHAPE.PERCEPTUAL: vgg) and loading a JAX "
-          "(Orbax) checkpoint.")
+_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire) and "
+          "loading a JAX (Orbax) checkpoint.")
 
 
 def main(argv=None) -> None:

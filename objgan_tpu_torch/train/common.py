@@ -62,6 +62,11 @@ class Trainer(nn.Module):
     def optimizers(self) -> List[torch.optim.Optimizer]:
         raise NotImplementedError
 
+    def trained_parameters(self) -> Dict[str, nn.Parameter]:
+        """The parameters that take gradients, by name: all but frozen
+        backbones (``requires_grad`` off)."""
+        return {n: p for n, p in self.named_parameters() if p.requires_grad}
+
     @staticmethod
     def grads_of(losses: Sequence[Tuple[torch.Tensor,
                                         Dict[str, nn.Parameter]]],

@@ -2,8 +2,11 @@
 matching losses. Port of ``objgan_tpu/train/damsm.py``.
 
 Both encoders take Adam (b1 0.5, b2 0.999, eps 1e-8) at
-``TRAIN.ENCODER_LR``. Only the text encoder's gradients are clipped, by
-their global norm at ``TRAIN.RNN_GRAD_CLIP``, with optax's rule
+``TRAIN.ENCODER_LR`` on their parameters that require a gradient: all of
+them, except the frozen Inception-v3 backbone of ``TEXT.CNN_BACKBONE:
+inception``, which gets no Adam state (JAX masks it off with
+``optax.masked``) and never moves. Only the text encoder's gradients are
+clipped, by their global norm at ``TRAIN.RNN_GRAD_CLIP``, with optax's rule
 (``train/common.py::clip_by_global_norm_``); the image encoder's are not.
 The text encoder's dropout mask is an argument of the step, drawn by the
 caller (``RNNEncoder.keep_mask``). On the card the image encoder's eight
@@ -46,7 +49,8 @@ class DamsmTrainer(Trainer):
     def reset_optimizers(self) -> None:
         lr = self.cfg.TRAIN.ENCODER_LR
         self.text_opt = adam(self.text_enc.parameters(), lr)
-        self.img_opt = adam(self.img_enc.parameters(), lr)
+        self.img_opt = adam([p for p in self.img_enc.parameters()
+                             if p.requires_grad], lr)
         self.step = 0
 
     def optimizers(self):
@@ -66,11 +70,10 @@ class DamsmTrainer(Trainer):
 
     def grads(self, batch: Dict, keep_mask: torch.Tensor
               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """Every parameter's gradient (unclipped) by name, and the step's
-        metrics (detached)."""
+        """Every trained parameter's gradient (unclipped) by name, and the
+        step's metrics (detached)."""
         total, metrics = self.losses(batch, keep_mask)
-        return self.grads_of([(total, dict(self.named_parameters()))],
-                             metrics)
+        return self.grads_of([(total, self.trained_parameters())], metrics)
 
     def clip_(self, grads: Dict[str, torch.Tensor]) -> None:
         """The text encoder's gradients only, by their global norm."""

@@ -300,10 +300,11 @@ class GanTrainer(Trainer):
         return metrics
 
     @torch.no_grad()
-    def sample(self, batch: Dict, z: torch.Tensor,
-               ca_eps: torch.Tensor) -> Dict[str, object]:
-        """Text + layout -> image pyramid with the EMA generator."""
+    def sample(self, batch: Dict, z: torch.Tensor, ca_eps: torch.Tensor,
+               use_ema: bool = True) -> Dict[str, object]:
+        """Text + layout -> image pyramid with the EMA generator, or with
+        the raw (last-step) one when not ``use_ema``."""
         view = types.SimpleNamespace(
-            g_net=self.ema_g, text_enc=self.text_enc,
-            label_table=self.label_table)
+            g_net=self.ema_g if use_ema else self.g_net,
+            text_enc=self.text_enc, label_table=self.label_table)
         return sample(view, from_wire(self.cfg, batch), z, ca_eps)

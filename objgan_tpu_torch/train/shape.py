@@ -7,7 +7,12 @@ runs through D with D's parameters detached (``torch.func.functional_call``
 on detached copies), and the real features it matches are detached. So
 every gradient comes from the same iterate. Adam (b1 0.5, b2 0.999) at
 ``SHAPE.LEARNING_RATE`` updates G and D. The perceptual term is D feature
-matching (``SHAPE.PERCEPTUAL: fm``); ``vgg`` is not ported. The noise ``z``
+matching (``SHAPE.PERCEPTUAL: fm``), or with ``vgg`` the L1 distance of
+frozen VGG-16 features (``models/vgg.py``, up to ``relu4_3``) of the fake
+and the real masks, weighted by ``LAMBDA_PERCEPTUAL``, in place of feature
+matching. VGG takes no Adam state and never moves; its weights are random
+(with a warning) unless ``SHAPE.VGG_WEIGHTS`` names a torchvision
+``vgg16`` state dict. The noise ``z``
 (B, O, 1, 1, SHAPE.GF_DIM) is an argument of the step (``shape_noise``).
 On the card, G's 5 and D's 2 GroupNorms per application run kernel K1
 under autograd: 11 forward calls a step.
@@ -29,6 +34,8 @@ from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.losses.gan_loss import shape_d_loss, shape_g_loss
 from objgan_tpu_torch.models.shape_generator import (ShapeDiscriminator,
                                                      ShapeGenerator)
+from objgan_tpu_torch.models.vgg import (VGG16, load_torchvision_vgg16,
+                                         vgg_perceptual_loss)
 from objgan_tpu_torch.train.common import Trainer, adam
 
 
@@ -67,16 +74,16 @@ class ShapeTrainer(Trainer):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.SHAPE.PERCEPTUAL == "vgg":
-            raise NotImplementedError(
-                "SHAPE.PERCEPTUAL: vgg (VGG-16 perceptual features) is not "
-                "ported yet (ROADMAP.md); use the default 'fm'")
-        if cfg.SHAPE.PERCEPTUAL != "fm":
+        if cfg.SHAPE.PERCEPTUAL not in ("fm", "vgg"):
             raise ValueError(f"SHAPE.PERCEPTUAL must be 'fm' or 'vgg', got "
                              f"{cfg.SHAPE.PERCEPTUAL!r}")
         self.cfg = cfg
         self.g = ShapeGenerator(cfg)
         self.d = ShapeDiscriminator(cfg)
+        self.vgg = None
+        if cfg.SHAPE.PERCEPTUAL == "vgg":
+            self.vgg = VGG16(stop_at="relu4_3")  # the last perceptual tap
+            self.vgg.requires_grad_(False)
         self.register_buffer("label_table", torch.zeros(
             cfg.OBJ.NUM_CLASSES, cfg.OBJ.LABEL_DIM))
         self.reset_optimizers()
@@ -88,8 +95,22 @@ class ShapeTrainer(Trainer):
         init_weights(self.d, generator)
         with torch.no_grad():
             self.label_table.copy_(_default_label_table(self.cfg, generator))
+        if self.vgg is not None:
+            self._init_vgg(generator)
         self.reset_optimizers()
         return self
+
+    def _init_vgg(self, generator: torch.Generator) -> None:
+        path = self.cfg.SHAPE.VGG_WEIGHTS
+        if path:
+            load_torchvision_vgg16(self.vgg, torch.load(
+                path, map_location="cpu", weights_only=True))
+            print(f"loaded VGG-16 weights from {path}")
+        else:
+            init_weights(self.vgg, generator)
+            print("WARNING: SHAPE.PERCEPTUAL=vgg without "
+                  "SHAPE.VGG_WEIGHTS — perceptual features are RANDOM "
+                  "(structural test only)")
 
     def reset_optimizers(self) -> None:
         lr = self.cfg.SHAPE.LEARNING_RATE
@@ -114,9 +135,19 @@ class ShapeTrainer(Trainer):
         frozen_d = {k: v.detach() for k, v in self.d.named_parameters()}
         fake_logits_g, fake_feats = functional_call(
             self.d, frozen_d, (fake, boxes, labels_emb))
+        # VGG's perceptual term replaces D feature matching
+        lambda_fm = 0.0 if self.vgg is not None else self.cfg.SHAPE.LAMBDA_FM
         g_l, aux = shape_g_loss(
             fake_logits_g, [f.detach() for f in real_feats], fake_feats,
-            shapes, mask_logits, valid, self.cfg.SHAPE.LAMBDA_FM)
+            shapes, mask_logits, valid, lambda_fm)
+        if self.vgg is not None:
+            b, o, s, _ = fake.shape
+            per = vgg_perceptual_loss(self.vgg, fake.reshape(b * o, s, s),
+                                      shapes.reshape(b * o, s, s))
+            v = valid.reshape(b * o).float()
+            perceptual = (per * v).sum() / v.sum().clamp(min=1.0)
+            g_l = g_l + self.cfg.SHAPE.LAMBDA_PERCEPTUAL * perceptual
+            aux["shape_perceptual"] = perceptual
         aux.update(shape_d=d_l, shape_g=g_l)
         return d_l + g_l, aux
 
@@ -124,8 +155,7 @@ class ShapeTrainer(Trainer):
         """Every G and D gradient by parameter name, from one backward, and
         the step's metrics (detached)."""
         total, metrics = self.losses(batch, z)
-        return self.grads_of([(total, dict(self.named_parameters()))],
-                             metrics)
+        return self.grads_of([(total, self.trained_parameters())], metrics)
 
     def train_step(self, batch: Dict,
                    z: torch.Tensor) -> Dict[str, torch.Tensor]:

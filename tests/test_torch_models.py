@@ -306,6 +306,14 @@ def test_image_encoder(cfg):
 
 
 def test_inception_backbone_is_refused():
+    """No longer refused: ``inception`` builds the Inception-v3 encoder
+    with its backbone frozen (``tests/test_torch_inception.py`` holds it
+    to JAX)."""
+    from objgan_tpu_torch.models.inception_v3 import InceptionEncoder
+
     cfg = port_cfg(tiny("float32", TEXT={"CNN_BACKBONE": "inception"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_image_encoder(cfg)
+    enc = build_image_encoder(cfg)
+    assert isinstance(enc, InceptionEncoder)
+    assert not any(p.requires_grad for p in enc.backbone.parameters())
+    assert all(p.requires_grad for name, p in enc.named_parameters()
+               if not name.startswith("backbone."))

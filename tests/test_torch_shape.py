@@ -11,7 +11,8 @@ across by ``core.bridge.load_shape_state``.
   parameter and Adam moment within 1e-5.
 * ``utils/shape_eval.py::heldout_mask_metrics`` equals JAX's with JAX's
   per-batch noise.
-* ``SHAPE.PERCEPTUAL: vgg`` is refused.
+* ``SHAPE.PERCEPTUAL: vgg`` builds a frozen VGG-16; another mode is
+  refused.
 """
 
 import jax
@@ -191,8 +192,12 @@ def test_shape_eval_matches_jax(jax_shape):
 
 
 def test_vgg_perceptual_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShapeTrainer(ttiny("float32", SHAPE={"PERCEPTUAL": "vgg"}))
+    """``vgg`` is ported now (``tests/test_torch_vgg.py`` holds its step
+    to JAX): it builds a frozen VGG-16; an unknown mode is still refused."""
+    trainer = ShapeTrainer(ttiny("float32", SHAPE={"PERCEPTUAL": "vgg"}))
+    assert trainer.vgg is not None
+    assert not any(p.requires_grad for p in trainer.vgg.parameters())
+    assert ShapeTrainer(ttiny("float32")).vgg is None
     with pytest.raises(ValueError, match="PERCEPTUAL"):
         ShapeTrainer(ttiny("float32", SHAPE={"PERCEPTUAL": "lpips"}))
 
