@@ -133,6 +133,26 @@ and strict); and checks every hand-written kernel on them:
                 15's;
 24. small_eval  the tiny fp32 eval on the GPU (K1) against the CPU (twins),
                 same checkpoint, batches and noise: every metric.
+25. feed        the host feeds of ``--wire`` and ``--grain`` on the
+                manifest: the RAM budget the wire cache's policy finds;
+                ``cli.pretrain_damsm`` with ``--wire`` at ``damsm_coco``
+                width (3 steps, a snapshot drawn on ``image_u8``),
+                ``from_wire`` on the card against the CPU, host->device
+                bytes and ms wire against classic, the feed's ms per batch
+                cold, the cache's fill and warm against classic, the device
+                step on a resident wire batch against a classic one;
+                ``cli.train_shape`` with ``--wire`` (3 steps) and its warm
+                feed against the polygon-mask feed; ``cli.train_gan`` with
+                ``--wire --grain`` at ``coco_objgan`` width (2 steps from
+                worker processes, K1 launched as often per step as in phase
+                6, K2 and K3 3 times) and every K1, K2 and K3 call of one
+                more step on a wire batch held against the twins; the
+                worker feed's ms per batch at 0 and WORKERS workers,
+                classic and wire, at batch 48; ``cli.evaluate`` with
+                ``--grain`` on that Stage-C checkpoint, 2 batches.
+26. processes   no process that the smoke started is left: the worker
+                feeds' fork server stopped with the last feed, and the
+                resource tracker it started stops here.
 
 Times are device time from CUDA events around a CUDA-graph replay of one
 call, median of 20, unless a line says otherwise. K1, K2, K3 and
@@ -912,10 +932,10 @@ def _roi_requested(name, boxes, f_shape, out_size, q, itemsize):
     return rows * out_size * c * itemsize
 
 
-def _record_train_step(cfg, trainer):
-    """One full-width train step with every kernel call's input copied:
-    (K1 records as ``_record_gn`` makes them, K2 calls, K3 calls, the
-    batch's padded-object mask)."""
+def _record_train_step(cfg, trainer, batch=None):
+    """One full-width train step on ``batch`` (a synthetic one when None)
+    with every kernel call's input copied: (K1 records as ``_record_gn``
+    makes them, K2 calls, K3 calls, the batch's padded-object mask)."""
     import torch
 
     from objgan_tpu_torch.data.synthetic import synthetic_batch
@@ -934,7 +954,8 @@ def _record_train_step(cfg, trainer):
         return orig[1](boxes, g, f_shape, out_size, q)
 
     gen = torch.Generator("cuda").manual_seed(7)
-    batch = synthetic_batch(cfg, gen)
+    if batch is None:
+        batch = synthetic_batch(cfg, gen)
     noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE, gen, "cuda")
     gn, hooks = _record_gn(trainer)
     ra.roi_align_cuda, ra.roi_align_backward_cuda = rec_fwd, rec_bwd
@@ -2326,6 +2347,397 @@ def phase_small_eval():
         f"{worst}; limit 1e-3); FID {got['fid']:.6f} vs {want['fid']:.6f}")
 
 
+def _put_ms(batch, n=5):
+    """Synchronised ms of ``cli.to_device`` (pinned memory, non-blocking
+    copy) of a numpy batch to the card: the median of ``n``."""
+    import torch
+
+    from objgan_tpu_torch import cli
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        times.append(1000.0 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _hold_against_twins(phase, gn, fwd, bwd):
+    """Every recorded K1, K2 and K3 call against its twin, with the
+    tolerances of phases ``kernels`` and ``roi`` (K3's cotangent scaled to
+    unit RMS as there). Returns the max error per kernel."""
+    import torch
+
+    from objgan_tpu_torch.ops import roi_align as ra
+    from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
+                                                group_norm_reference)
+
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+
+    @torch.no_grad()
+    def hold(name, got, want, dt):
+        err = (got.float() - want.float()).abs()
+        if dt == torch.float32:
+            check(float(err.max()) <= FP32_ATOL,
+                  f"{phase}: {name} vs twin, max err {float(err.max()):.3g}")
+        else:
+            atol, rtol = ((BF16_ATOL, BF16_RTOL) if name == "K1" else
+                          (ROI_BF16_ATOL, ROI_BF16_RTOL))
+            over = err > atol + rtol * want.float().abs()
+            check(not bool(over.any()), f"{phase}: {name} vs twin, "
+                  f"{int(over.sum())} elements beyond tolerance")
+        errs[name] = max(errs[name], float(err.max()))
+
+    for mod, x in gn:
+        x3 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
+        args = (mod.weight.detach(), mod.bias.detach(), mod.num_groups,
+                mod.eps, mod.use_glu)
+        # fp32 against the twin evaluated in fp64, as phase kernels does
+        ref = x3.double() if x3.dtype == torch.float32 else x3
+        hold("K1", group_norm_cuda(x3, *args),
+             group_norm_reference(ref, *args), x3.dtype)
+    for f, boxes, r, q in fwd:
+        hold("K2", ra.roi_align_cuda(f, boxes, r, q),
+             ra.roi_align_reference(f, boxes, r, q), f.dtype)
+    for boxes, g, f_shape, r, q in bwd:
+        g = (g.float() / g.float().square().mean().sqrt()).to(g.dtype)
+        hold("K3", ra.roi_align_backward_cuda(boxes, g, f_shape, r, q),
+             ra.roi_align_backward_reference(boxes, g, f_shape, g.dtype, r,
+                                             q), g.dtype)
+    return errs
+
+
+def _feed_run_ms(feed, n, skip):
+    """(first batch ms, ms per batch of ``n`` more after ``skip`` untimed
+    ones: the batches its workers prefetched while the first was made)."""
+    t0 = time.perf_counter()
+    next(feed)
+    first = 1000.0 * (time.perf_counter() - t0)
+    for _ in range(skip):
+        next(feed)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(feed)
+    return first, 1000.0 * (time.perf_counter() - t0) / n
+
+
+def phase_feed(k1_per_step):
+    """The host feeds of ``--wire`` and ``--grain``: DAMSM and Stage B on
+    wire batches through their CLI runners, the cache's cold and warm feed
+    against the classic one, host->device bytes, the device step on a
+    resident wire batch against a classic one; Stage C through
+    ``cli.train_gan`` with ``--wire --grain`` and its kernel calls held
+    against the twins; the worker feed's ms per batch; ``cli.evaluate``
+    with ``--grain``; the RAM budget the cache policy finds. Returns the
+    Stage-C run's launches and max errors per kernel."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data import pipeline as pl
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.data.grain_feed import PREFETCH, grain_feed
+    from objgan_tpu_torch.data.tokenizer import Vocab
+    from objgan_tpu_torch.data.wire import WIRE_IMAGE, from_wire
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.ops import groupnorm
+    from objgan_tpu_torch.tools.profile_feed import batch_bytes
+
+    manifest = os.path.join(ROOT, MANIFEST)
+    data_dir = os.path.join(ROOT, DATA_DIR)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_feed_")
+    records = pl.load_records_json(manifest)
+
+    # -- the cache budget on this host -----------------------------------
+    try:
+        sysconf = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (ValueError, OSError):
+        sysconf = -1
+    limit = pl._cgroup_mem_limit()
+    ram = pl._physical_ram_bytes()
+    damsm_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml")
+                              ).merged({"OUTPUT_DIR": tmp,
+                                        "DATA_DIR": data_dir,
+                                        "TRAIN": {"SNAPSHOT_STEPS": 2}})
+    per = pl.wire_record_bytes(damsm_cfg, with_masks=False)
+    log("feed", f"cache budget: sysconf RAM {sysconf / 2 ** 30:.1f} GiB, "
+        f"cgroup limit {limit} B, _physical_ram_bytes {ram / 2 ** 30:.1f} GiB, budget a quarter "
+        f"{ram / 4 / 2 ** 30:.1f} GiB; DAMSM wire record {per} B x "
+        f"{len(records)} records = {per * len(records) / 1e6:.1f} MB: cached "
+        f"{pl.wire_cache_allowed(damsm_cfg, len(records), with_masks=False)}"
+        f"; with {damsm_cfg.WORKERS} workers' copies "
+        f"{per * len(records) * damsm_cfg.WORKERS / 1e6:.1f} MB: cached "
+        f"{pl.wire_cache_allowed(damsm_cfg, len(records) * damsm_cfg.WORKERS, with_masks=False)}")
+
+    # -- DAMSM with --wire through cli.pretrain_damsm --------------------
+    cfg = damsm_cfg
+    feed, n_records, vocab = build_feed(cfg, manifest, with_masks=False,
+                                        wire=True)
+    steps = 3
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.pretrain_damsm(cfg, feed, max_steps=steps,
+                                     device="cuda", log_every=1,
+                                     ixtoword=vocab.ixtoword)
+    torch.cuda.synchronize()
+    k1 = groupnorm.launches
+    wall_s = time.monotonic() - t0
+    seen = _metric_lines(out.getvalue())
+    check(len(seen) == steps and all(math.isfinite(v) for m in seen
+                                     for v in m.values()),
+          "DAMSM --wire: metrics missing or non-finite")
+    grids = sorted(f for f in os.listdir(os.path.join(
+        tmp, f"{cfg.CONFIG_NAME}_damsm")) if f.startswith("attn_"))
+    check(grids == ["attn_step2.png"], f"DAMSM --wire grids {grids}")
+    check(k1 == 8 * (steps + len(grids)), f"DAMSM --wire: K1 launched {k1} "
+          f"times for {steps} steps and {len(grids)} snapshot")
+    loop = [1000.0 / m["steps_per_sec"] for m in seen]
+    log("feed", f"DAMSM --wire (cfg/damsm_coco.yml, batch "
+        f"{cfg.TRAIN.BATCH_SIZE}, {MANIFEST}): cli.pretrain_damsm took "
+        f"{steps} steps in {wall_s:.1f} s, finite metrics, the snapshot grid "
+        f"{grids[0]} drawn on image_u8; K1 launches {k1} = 8 x ({steps} "
+        f"steps + 1 snapshot); loop ms per step " + ", ".join(
+            f"{t:.1f}" for t in loop))
+
+    # from_wire on the card against the CPU
+    wire = next(feed)
+    classic_feed = cli._finest_scale_only(build_feed(
+        cfg, manifest, with_masks=False)[0])
+    classic = next(classic_feed)
+    wire_dev = cli.to_device(wire, "cuda")
+    got = from_wire(cfg, wire_dev)["images"]
+    want = from_wire(cfg, cli.to_device(wire, "cpu"))["images"]
+    # the card divides by 127.5 through its reciprocal: the finest scale
+    # may differ by an ulp of x / 127.5 in [0, 2] (2^-23), rounded twice
+    finest = float((got[-1].cpu() - want[-1]).abs().max())
+    check(finest <= 2.0 ** -22, f"from_wire: the finest scale differs by "
+          f"{finest:.3g} between card and CPU")
+    coarse = max(float((g.cpu() - w).abs().max())
+                 for g, w in zip(got[:-1], want[:-1]))
+    check(coarse <= 1e-6, f"from_wire: a coarse scale differs by {coarse:.3g}")
+    wire_b, classic_b = batch_bytes(wire), batch_bytes(classic)
+    wire_img = wire[WIRE_IMAGE].nbytes
+    classic_img = classic["images"][-1].nbytes
+    log("feed", f"from_wire of a DAMSM wire batch on the card vs the CPU: "
+        f"finest scale {tuple(got[-1].shape)} within {finest:.3g} (atol "
+        f"2^-22: the card multiplies by 1/127.5), "
+        f"{int((got[-1].cpu() != want[-1]).sum())} of {want[-1].numel()} "
+        f"values differ; coarse scales "
+        + ", ".join(str(tuple(g.shape[1:3])) for g in got[:-1])
+        + f" within {coarse:.3g} (atol 1e-6: means in another order)")
+    log("feed", f"host->device per DAMSM batch: wire {wire_b / 1e6:.2f} MB "
+        f"(image_u8 {wire_img / 1e6:.2f} MB) in {_put_ms(wire):.2f} ms; "
+        f"classic (finest scale only) {classic_b / 1e6:.2f} MB (fp32 images "
+        f"{classic_img / 1e6:.2f} MB) in {_put_ms(classic):.2f} ms; "
+        f"synchronised, median of 5")
+
+    # the feed cold, the cache's fill, the feed warm, the classic feed
+    cold = pl.CocoFeed(cfg, records, vocab, seed=5, wire=True,
+                       with_masks=False, augment=True)
+    check(cold._cache is not None, "the DAMSM wire cache is off")
+    cold_ms = _feed_ms(iter(cold), 5)
+    t0 = time.perf_counter()
+    for i, rec in enumerate(records):
+        cold._wire_base(rec, i)
+    fill_s = time.perf_counter() - t0
+    cache_mb = sum(a.nbytes for base in cold._cache.values()
+                   for k, a in base.items() if k != "enc") / 1e6
+    warm_ms = _feed_ms(iter(cold), 5)
+    classic_ms = _feed_ms(classic_feed, 5)
+    log("feed", f"DAMSM host feed ms per batch of {cfg.TRAIN.BATCH_SIZE}, "
+        f"one thread: wire cold (first epoch: {cfg.TRAIN.BATCH_SIZE} PNG "
+        f"decodes, no resize) " + ", ".join(f"{t:.1f}" for t in cold_ms)
+        + f" (median {statistics.median(cold_ms):.1f}); the cache's fill "
+        f"over {len(records)} records {fill_s:.2f} s, {cache_mb:.1f} MB of "
+        f"arrays; wire warm " + ", ".join(f"{t:.1f}" for t in warm_ms)
+        + f" (median {statistics.median(warm_ms):.1f}); classic "
+        + ", ".join(f"{t:.1f}" for t in classic_ms)
+        + f" (median {statistics.median(classic_ms):.1f})")
+
+    # the device step on a resident batch, wire against classic, in turns
+    classic_dev = cli.to_device(classic, "cuda")
+    keep = trainer.text_enc.keep_mask(
+        wire_dev["captions"], torch.Generator("cuda").manual_seed(123))
+    times = {"classic": [], "wire": []}
+    for name in ("classic", "wire", "wire", "classic") * 3:
+        batch = wire_dev if name == "wire" else classic_dev
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, keep)
+        torch.cuda.synchronize()
+        times[name].append(1000.0 * (time.perf_counter() - t0))
+    expand_ms = _event_ms(lambda: from_wire(cfg, wire_dev), 20)
+    log("feed", "DAMSM device step on a resident batch, synchronised ms, "
+        "in turns: classic " + ", ".join(f"{t:.1f}" for t in times["classic"])
+        + f" (median {statistics.median(times['classic'][1:]):.1f}); wire "
+        + ", ".join(f"{t:.1f}" for t in times["wire"])
+        + f" (median {statistics.median(times['wire'][1:]):.1f}); from_wire "
+        f"alone (the 64/128 px means DAMSM drops included) "
+        f"{expand_ms:.3f} ms (CUDA events, eager, median of 20)")
+    del trainer, wire_dev, classic_dev, keep, got, want
+    torch.cuda.empty_cache()
+
+    # -- Stage B with --wire through cli.train_shape ---------------------
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "shape_coco.yml")).merged(
+        {"OUTPUT_DIR": tmp, "DATA_DIR": data_dir})
+    feed, n_records, vocab = build_feed(cfg, manifest, with_images=False,
+                                        wire=True)
+    cfg, steps = cli.apply_epoch_schedule(cfg, n_records, 3)
+    trainer, seen, counts, _, wall_s, _ = _run_stage(
+        "feed", cli.train_shape, cfg, feed, steps, (FusedGroupNorm,))
+    check(counts[0] == 11 * steps, f"Stage B --wire: K1 launched "
+          f"{counts[0]} times in {steps} steps")
+    loop = [1000.0 / m["steps_per_sec"] for m in seen]
+    subset = records[:20 * cfg.TRAIN.BATCH_SIZE]
+    warm = pl.CocoFeed(cfg, subset, vocab, seed=5, wire=True,
+                       with_images=False)
+    t0 = time.perf_counter()
+    for i, rec in enumerate(subset):
+        warm._wire_base(rec, i)
+    fill_s = time.perf_counter() - t0
+    warm_ms = _feed_ms(iter(warm), 5)
+    classic_ms = _feed_ms(iter(pl.CocoFeed(cfg, subset, vocab, seed=5,
+                                           with_images=False)), 5)
+    log("feed", f"Stage B --wire (cfg/shape_coco.yml, {cfg.TRAIN.BATCH_SIZE}"
+        f" x {cfg.OBJ.MAX_OBJECTS} objects): cli.train_shape took {steps} "
+        f"steps in {wall_s:.1f} s, finite metrics, K1 {counts[0]} launches; "
+        f"loop ms per step " + ", ".join(f"{t:.1f}" for t in loop)
+        + f"; host feed ms per batch, one thread, on the first "
+        f"{len(subset)} records: wire warm (cache filled in {fill_s:.2f} s) "
+        + ", ".join(f"{t:.1f}" for t in warm_ms) + f" (median "
+        f"{statistics.median(warm_ms):.1f}); classic polygon-mask feed "
+        + ", ".join(f"{t:.1f}" for t in classic_ms) + f" (median "
+        f"{statistics.median(classic_ms):.1f})")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # -- Stage C with --wire --grain through cli.train_gan ----------------
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml")).merged(
+        {"OUTPUT_DIR": tmp, "DATA_DIR": data_dir,
+         "TRAIN": {"SNAPSHOT_STEPS": 1000}})
+    feed, n_records, vocab = build_feed(cfg, manifest, wire=True, grain=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.train_gan(cfg, feed, max_steps=2, device="cuda",
+                                log_every=1, ixtoword=vocab.ixtoword)
+    torch.cuda.synchronize()
+    k1, k2, k3 = _counts()
+    wall_s = time.monotonic() - t0
+    seen = _metric_lines(out.getvalue())
+    check(len(seen) == 2 and all(math.isfinite(v) for m in seen
+                                 for v in m.values()),
+          "Stage C --wire --grain: metrics missing or non-finite")
+    check(k1 == 2 * k1_per_step, f"Stage C --wire --grain: K1 launched {k1} "
+          f"times in 2 steps; phase train {k1_per_step} per step")
+    check(k2 == 6 and k3 == 6, f"Stage C --wire --grain: K2 {k2}, K3 {k3} "
+          f"launches in 2 steps")
+    batch = next(feed)
+    check(WIRE_IMAGE in batch and "shapes_u8" in batch,
+          "the --wire --grain feed gave no wire batch")
+    gn, fwd, bwd, _ = _record_train_step(cfg, trainer,
+                                         cli.to_device(batch, "cuda"))
+    feed.close()
+    check(len(gn) == k1_per_step and len(fwd) == 3 and len(bwd) == 3,
+          f"one wire step made {len(gn)} K1, {len(fwd)} K2, {len(bwd)} K3 "
+          f"calls")
+    errs = _hold_against_twins("feed", gn, fwd, bwd)
+    loop = [1000.0 / m["steps_per_sec"] for m in seen]
+    log("feed", f"Stage C --wire --grain (cfg/coco_objgan.yml, batch "
+        f"{cfg.TRAIN.BATCH_SIZE}, {cfg.WORKERS} worker processes): "
+        f"cli.train_gan took 2 steps in {wall_s:.1f} s (set-up and the "
+        f"workers' start included), finite metrics; launches K1 {k1} "
+        f"({k1_per_step} per step, as phase train), K2 {k2}, K3 {k3}; loop "
+        f"ms per step " + ", ".join(f"{t:.1f}" for t in loop))
+    log("feed", f"one more step on a wire batch from the workers: its "
+        f"{len(gn)} K1, {len(fwd)} K2 and {len(bwd)} K3 calls agree with "
+        f"the twins: max err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g}, K3 "
+        f"{errs['K3']:.3g} (tolerances of phases kernels and roi)")
+    del trainer, gn, fwd, bwd, batch
+    torch.cuda.empty_cache()
+
+    # -- the worker feed at DAMSM's batch ---------------------------------
+    cfg = damsm_cfg
+    vocab = Vocab.build(c for r in records for c in r["captions"])
+    rows = []
+    for wire in (False, True):
+        for workers in (0, cfg.WORKERS):
+            feed = grain_feed(cfg.replace(WORKERS=workers), records, vocab,
+                              seed=9, with_masks=False, wire=wire)
+            first, per_batch = _feed_run_ms(feed, 8, workers * PREFETCH)
+            feed.close()
+            rows.append(f"{'wire' if wire else 'classic'}, {workers} "
+                        f"workers: {per_batch:.1f} ms per batch (the first "
+                        f"{first:.0f} ms)")
+    log("feed", f"worker feed (data/grain_feed.py) at DAMSM's batch "
+        f"{cfg.TRAIN.BATCH_SIZE}, cold (first epoch), 8 batches after the "
+        f"first and the {PREFETCH} per worker prefetched meanwhile: " + "; ".join(rows))
+
+    # -- cli.evaluate with --grain ----------------------------------------
+    cfg = _eval_cfg(tmp)
+    feed, _, vocab = build_feed(cfg, manifest, augment=False, grain=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        metrics = cli.evaluate(cfg, feed, 2, frozen_probe="off",
+                               feed_vocab=vocab, device="cuda")
+    torch.cuda.synchronize()
+    eval_k1 = groupnorm.launches
+    feed.close()
+    text = out.getvalue()
+    check("evaluating checkpoint at step 2" in text,
+          "eval --grain did not restore the --wire --grain checkpoint")
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          "eval --grain: a metric is not finite")
+    log("feed", f"cli.evaluate with --grain (cfg/eval_coco.yml, "
+        f"{cfg.WORKERS} workers) on that step-2 checkpoint, 2 batches in "
+        f"{time.monotonic() - t0:.1f} s: FID {metrics['fid']:.3f}, "
+        f"R-precision {metrics['r_precision']:.3f}, every metric finite; "
+        f"K1 launches {eval_k1}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": {"K1": k1, "K2": k2, "K3": k3}, "errs": errs}
+
+
+def _child_processes():
+    """(pid, command line) of every running process whose parent is this
+    one, from /proc."""
+    kids = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue  # it ended meanwhile
+        if ppid == os.getpid():
+            kids.append((int(pid), cmd.strip()[:200]))
+    return kids
+
+
+def phase_processes():
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()  # closes its pipe, waits
+    left = _child_processes()
+    check(not left, f"processes still running at the end: {left}")
+    log("processes", "no process started by the smoke is still running (the "
+        "fork server stopped with the last worker feed, the resource "
+        "tracker here)")
+
+
 def main():
     import torch
 
@@ -2396,11 +2808,13 @@ def main():
     phase_damsm_inception()
     phase_shape_vgg(shape["device_ms"])
     phase_small_eval()
+    feed = phase_feed(train["k1_per_step"])
+    phase_processes()
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": max(k1_err, k1_train_err, k1_damsm_err,
-                           k1_shape_err, k1_eval_err),
+                           k1_shape_err, k1_eval_err, feed["errs"]["K1"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": k1["library_ms"],
@@ -2409,8 +2823,11 @@ def main():
         # K1 runs on five paths: the keys above are per served batch (the
         # error the largest of the paths'), "train" per Stage-C train step,
         # "damsm" per DAMSM step, "shape" per Stage-B step, "eval" per eval
-        # batch (launches: the whole eval run); the library time takes two
+        # batch (launches: the whole eval run); "feed" is the Stage-C run
+        # on --wire --grain batches (2 steps); the library time takes two
         # calls (F.group_norm, F.glu) for a GN+GLU
+        "feed": {"launches": feed["launches"]["K1"],
+                 "max_abs_err": feed["errs"]["K1"]},
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "library_ms": r["library_ms"], "regimes": r["regimes"],
@@ -2429,10 +2846,13 @@ def main():
             "name": name, "route": "cuda", "source": ROI_SOURCE,
             "replaces": replaces,
             "launches": train["k2" if key == "K2" else "k3"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "max_abs_err": max(r["max_abs_err"], feed["errs"][key]),
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "ms_10_per_graph": r["ms_10_per_graph"],
+            "feed": {"launches": feed["launches"][key],
+                     "max_abs_err": feed["errs"][key]},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

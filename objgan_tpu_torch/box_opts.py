@@ -1,15 +1,13 @@
 """Stage-A command-line flags of the PyTorch port, the counterpart of
 ``box_generation/opts.py``: the reference's flags mapped onto the config
 tree, plus ``--device`` (default ``cuda``), ``--data_dir`` (sets
-``DATA_DIR``) and ``--log_every``. ``--wire`` is refused: the uint8 wire
-feed is not ported yet."""
+``DATA_DIR``) and ``--log_every``."""
 
 from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire) and "
-          "loading a JAX (Orbax) checkpoint.")
+_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
 
 
 def parse_opts(argv=None):
@@ -28,7 +26,7 @@ def parse_opts(argv=None):
     p.add_argument("--max_steps", type=int, default=10 ** 9)
     p.add_argument("--manifest", default=None)
     p.add_argument("--wire", action="store_true",
-                   help="refused: the uint8 wire feed is not ported yet")
+                   help="compact uint8 wire batches (data/wire.py)")
     p.add_argument("--captions_pickle", default=None)
     p.add_argument("--data_dir", default=None,
                    help="sets DATA_DIR, the directory the manifest's "
@@ -46,11 +44,7 @@ def parse_opts(argv=None):
                    help="(box_train) steps between metric lines")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
-    args = p.parse_args(argv)
-    if args.wire:
-        p.error("--wire: the uint8 wire feed is not ported yet "
-                "(ROADMAP.md, Queue 1)")
-    return args
+    return p.parse_args(argv)
 
 
 def to_config(args):

@@ -31,7 +31,7 @@ def main(argv=None) -> None:
         # the sampling path: B_VALIDATION serves the held-out split
         cfg = cfg.merged({"TRAIN": {"FLAG": False}})
         feed, _, _ = build_feed(cfg, args.manifest, args.captions_pickle,
-                                with_images=False)
+                                with_images=False, wire=args.wire)
         cli.eval_box(cfg, feed, num_batches=args.num_batches,
                      device=args.device)
         return

@@ -6,7 +6,8 @@
 
 Teacher-forced training of the box generator on the manifest's captions
 and layouts (no images, no masks are read; synthetic batches without
-``--manifest``): metric lines, keep-3 checkpoints and the metrics CSV under
+``--manifest``; ``--wire`` gives layout-only wire batches, the same
+tensors): metric lines, keep-3 checkpoints and the metrics CSV under
 ``OUTPUT_DIR/<CONFIG_NAME>_box``, resumed from its newest checkpoint. Runs
 on the CUDA device unless ``--device`` says otherwise.
 """
@@ -23,7 +24,8 @@ def main(argv=None) -> None:
     cfg = to_config(args)
     # Stage A reads captions and layouts only: no PNG decode, no masks
     feed, n_records, _ = build_feed(cfg, args.manifest, args.captions_pickle,
-                                    with_images=False, with_masks=False)
+                                    with_images=False, with_masks=False,
+                                    wire=args.wire)
     cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
     cli.train_box(cfg, feed, max_steps=max_steps, device=args.device,
                   log_every=args.log_every)

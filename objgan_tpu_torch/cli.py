@@ -39,6 +39,7 @@ from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.metrics import MetricsWriter
 from objgan_tpu_torch.core.precision import true_fp32
 from objgan_tpu_torch.data.synthetic import synthetic_batch
+from objgan_tpu_torch.data.wire import WIRE_IMAGE, from_wire
 from objgan_tpu_torch.train.box import BoxTrainer, box_noise, ss_flips
 from objgan_tpu_torch.train.common import Trainer, step_generator
 from objgan_tpu_torch.train.damsm import DamsmTrainer
@@ -340,7 +341,11 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     feed = _finest_scale_only(feed)
     first = next(feed)
     feed = itertools.chain([first], feed)
-    first_dev = to_device(first, device)
+    # a wire batch (--wire) is expanded on the device; the grid's
+    # background is its finest scale, taken on the host
+    first_dev = from_wire(cfg, to_device(first, device))
+    first_img = (np.asarray(first[WIRE_IMAGE], np.float32) / 127.5 - 1.0
+                 if WIRE_IMAGE in first else _numpy(first["images"][-1]))
     smooth = cfg.TRAIN.SMOOTH
 
     def step_fn(batch, step):
@@ -363,7 +368,7 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
         r = int(round(l ** 0.5))
         maps = diag.reshape(b, t, r, r).transpose(0, 2, 3, 1)
         save_png(os.path.join(out, f"attn_step{step}.png"),
-                 build_super_images(_numpy(first["images"][-1]), maps,
+                 build_super_images(first_img, maps,
                                     captions=_numpy(caps),
                                     cap_lens=_numpy(lens),
                                     ixtoword=ixtoword))
@@ -677,7 +682,7 @@ def evaluate(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     for i, batch in enumerate(itertools.islice(feed, num_batches)):
         if paired_reals:
             real_labels.append(fid_runner.primary_labels(batch))
-        batch = to_device(batch, device)
+        batch = from_wire(cfg, to_device(batch, device))
         nz = noise(i, batch["captions"].shape[0])
         fake = trainer.sample(batch, nz["z"], nz["ca_eps"],
                               use_ema=not raw_params)["images"][-1]

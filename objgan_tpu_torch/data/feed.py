@@ -1,6 +1,8 @@
 """The trainers' host feed from a dataset manifest. Port of
 ``gan/main.py::build_feed`` for one process (global record ids: offset 0,
-stride 1); the uint8 wire feed and the Grain feed are not ported.
+stride 1): ``CocoFeed`` in the calling process, or with ``grain`` the
+worker-process feed of ``data/grain_feed.py``; either gives classic
+batches, or with ``wire`` the uint8 wire batches of ``data/wire.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ def build_feed(cfg: Config, manifest: Optional[str],
                captions_pickle: Optional[str] = None,
                image_root: Optional[str] = None, with_images: bool = True,
                with_masks: bool = True, seed: Optional[int] = None,
-               augment: Optional[bool] = None
+               augment: Optional[bool] = None, wire: bool = False,
+               grain: bool = False
                ) -> Tuple[Optional[Iterator], int, Optional[Vocab]]:
     """``(feed or None, number of records, vocab or None)``; no manifest
     gives ``(None, 0, None)`` and the caller feeds synthetic batches.
@@ -31,7 +34,9 @@ def build_feed(cfg: Config, manifest: Optional[str],
     dropout) unless ``augment`` says otherwise (the eval's
     ``--aug_eval``). ``image_root``: the directory the records'
     ``image_file`` paths are relative to, by default ``cfg.DATA_DIR`` (the
-    entry points' ``--data_dir`` sets it), as in the JAX package."""
+    entry points' ``--data_dir`` sets it), as in the JAX package.
+    ``wire``: uint8 wire batches (``--wire``); ``grain``: the batches come
+    from ``cfg.WORKERS`` worker processes (``--grain``)."""
     if not manifest:
         return None, 0, None
     records = load_records_json(manifest)
@@ -43,10 +48,17 @@ def build_feed(cfg: Config, manifest: Optional[str],
         print(f"B_VALIDATION split: {len(train_recs)} train / "
               f"{len(val_recs)} held-out; using "
               f"{'train' if cfg.TRAIN.FLAG else 'held-out'}")
-    feed = CocoFeed(cfg, records, vocab,
-                    seed=cfg.RNG_SEED if seed is None else seed,
-                    with_images=with_images, with_masks=with_masks,
-                    augment=(bool(cfg.TRAIN.FLAG) if augment is None
-                             else augment),
-                    image_root=image_root or cfg.DATA_DIR)
+    seed = cfg.RNG_SEED if seed is None else seed
+    augment = bool(cfg.TRAIN.FLAG) if augment is None else augment
+    image_root = image_root or cfg.DATA_DIR
+    if grain:
+        from objgan_tpu_torch.data.grain_feed import grain_feed
+
+        return grain_feed(cfg.replace(DATA_DIR=image_root), records, vocab,
+                          seed=seed, with_images=with_images,
+                          with_masks=with_masks, augment=augment,
+                          wire=wire), len(records), vocab
+    feed = CocoFeed(cfg, records, vocab, seed=seed, with_images=with_images,
+                    with_masks=with_masks, augment=augment,
+                    image_root=image_root, wire=wire)
     return iter(feed), len(records), vocab

@@ -20,9 +20,16 @@ each object's box frame, and builds the image pyramid by area resize. The
 batch has the keys and dtypes of ``data/synthetic.py``'s, as numpy arrays;
 the trainer moves it onto its device.
 
-Left out of the copy: the uint8 wire format (``wire=True``) and its record
-cache, and the native C++ rasterizer: polygons are filled by the numpy
-even-odd scanline fill, which ``tests/test_core.py`` holds equal to it.
+``wire=True`` gives the uint8 wire batch of ``data/wire.py`` instead: the
+finest image scale as uint8 (``image_u8``) and the masks 255-quantised
+(``shapes_u8``); the trainers expand it on the device (``from_wire``). The
+deterministic work per record (decode, resize, rasterization, caption
+tokenization) is then done once and kept in a RAM cache when the dataset's
+predicted footprint fits the budget of :func:`wire_cache_allowed`.
+
+Left out of the copy: the native C++ rasterizer. Polygons are filled by
+the numpy even-odd scanline fill, which ``tests/test_core.py`` holds equal
+to it.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.data.tokenizer import Vocab
+from objgan_tpu_torch.data.wire import WIRE_IMAGE, WIRE_SHAPES
 
 
 def polygon_to_box_mask(
@@ -113,11 +121,19 @@ class CocoFeed:
     per-object masks, and <unk> word dropout. ``with_masks=False`` skips
     mask rasterization and omits "shapes"; ``with_images=False`` omits the
     pyramid. ``id_offset``/``id_stride`` map a partition's local record
-    index i to its global id offset + i * stride (the "class_ids")."""
+    index i to its global id offset + i * stride (the "class_ids").
+
+    ``wire=True`` emits the uint8 wire batch (module doc). Its cache keys
+    on the global record id and is all-or-nothing: on when the dataset fits
+    the byte budget of :func:`wire_cache_allowed`, or within an explicit
+    ``cache_limit`` record count; beyond it every epoch recomputes. Rows
+    hand out the cached arrays themselves or views of them (a flip is a
+    negative-stride view): nothing downstream may write into a row."""
 
     def __init__(self, cfg: Config, records: Sequence[Dict], vocab: Vocab,
                  seed: int = 0, with_images: bool = True,
                  augment: bool = True, image_root: Optional[str] = None,
+                 wire: bool = False, cache_limit: Optional[int] = None,
                  with_masks: bool = True, id_offset: int = 0,
                  id_stride: int = 1):
         self.cfg = cfg
@@ -129,6 +145,13 @@ class CocoFeed:
         self.id_stride = int(id_stride)
         self.with_masks = with_masks
         self.augment = augment
+        self.wire = wire
+        self._cache: Optional[Dict[int, Dict]] = (
+            {} if wire and wire_cache_allowed(cfg, len(self.records),
+                                              cache_limit, with_images,
+                                              with_masks)
+            else None
+        )
         self.image_root = image_root or cfg.DATA_DIR
         if not self.records:
             raise ValueError("empty dataset")
@@ -226,10 +249,87 @@ class CocoFeed:
         caps, lens = self.vocab.encode(cap, self.cfg.TEXT.WORDS_NUM)
         return self._word_dropout(caps, lens, rng), lens
 
+    def _finest_u8(self, rec: Dict) -> Optional[np.ndarray]:
+        """Finest-scale uint8 image (canonical orientation) for wire mode."""
+        sz = self.cfg.branch_sizes[-1]
+        if rec.get("image") is not None:
+            img = np.asarray(rec["image"])
+            if not np.issubdtype(img.dtype, np.integer):
+                img = (img + 1.0) * 127.5  # [-1, 1] float contract -> u8
+            img = _resize_area(img.astype(np.float32), sz)
+            # round, as the PIL path does: truncation would bias an inline
+            # image ~-0.5 LSB against the identical on-disk file
+            return np.clip(np.round(img), 0.0, 255.0).astype(np.uint8)
+        if rec.get("image_file"):
+            from PIL import Image
+
+            path = os.path.join(self.image_root, rec["image_file"])
+            with Image.open(path) as im:
+                im = im.convert("RGB")
+                if im.size != (sz, sz):
+                    im = im.resize((sz, sz), Image.BOX)
+                return np.asarray(im, np.uint8)
+        return None
+
+    def _wire_base(self, rec: Dict, rec_id: int) -> Dict:
+        """The cacheable deterministic work of one record in wire mode:
+        decode + resize + rasterize + tokenize, once per record."""
+        if self._cache is not None:
+            hit = self._cache.get(rec_id)
+            if hit is not None:
+                return hit
+        cfg = self.cfg
+        labels, boxes, valid, masks = self._canonical(rec)
+        base = {
+            "enc": [self.vocab.encode(c, cfg.TEXT.WORDS_NUM)
+                    for c in rec["captions"]],
+            "labels": labels, "boxes": boxes, "valid": valid,
+        }
+        if masks is not None:
+            # 8-bit quantization, not binarization: soft mask values
+            # survive within 1/510, binary masks round-trip exactly
+            base["masks_u8"] = np.clip(
+                np.round(masks * 255.0), 0.0, 255.0).astype(np.uint8)
+        if self.with_images:
+            base["image_u8"] = self._finest_u8(rec)
+        if self._cache is not None:
+            self._cache[rec_id] = base
+        return base
+
+    def _one_wire(self, rec: Dict, rng, rec_id: int) -> Dict[str, np.ndarray]:
+        base = self._wire_base(rec, rec_id)
+        caps, lens = base["enc"][rng.integers(len(base["enc"]))]
+        # copies before any write: the cached arrays serve every epoch
+        caps = self._word_dropout(caps.copy(), lens, rng)
+        flip = bool(self.augment and rng.random() < 0.5)
+        boxes, masks = base["boxes"], base.get("masks_u8")
+        if flip:
+            n = int(base["valid"].sum())
+            boxes = boxes.copy()
+            boxes[:n, 0] = 1.0 - boxes[:n, 0] - boxes[:n, 2]
+            if masks is not None:
+                masks = masks[:, :, ::-1]
+        out = {
+            "captions": caps,
+            "cap_lens": np.int32(lens),
+            "class_ids": np.int32(rec_id),
+            "labels": base["labels"],
+            "boxes": boxes,
+            "obj_valid": base["valid"],
+        }
+        if masks is not None:
+            out[WIRE_SHAPES] = masks
+        if self.with_images and base.get("image_u8") is not None:
+            img = base["image_u8"]
+            out[WIRE_IMAGE] = img[:, ::-1] if flip else img
+        return out
+
     def _one(self, rec: Dict, rng: Optional[np.random.Generator] = None,
              rec_id: int = 0) -> Dict[str, np.ndarray]:
         rng = rng if rng is not None else self.rng
         cfg = self.cfg
+        if self.wire:
+            return self._one_wire(rec, rng, rec_id)
         caps, lens = self._encode_caption(rec, rng)
         labels, boxes, valid, masks = self._canonical(rec)
         n = int(valid.sum())
@@ -299,6 +399,91 @@ class CocoFeed:
                 else:
                     batch[k] = np.stack([r[k] for r in rows])
             yield batch
+
+
+def wire_record_bytes(cfg: Config, with_images: bool = True,
+                      with_masks: bool = True) -> int:
+    """Predicted RAM bytes of one cached ``_wire_base`` entry, fixed by the
+    config: finest-scale uint8 image + uint8 object masks + padded layout
+    tensors + tokenized captions (nominal 5 captions a record, COCO's)."""
+    img = cfg.branch_sizes[-1] ** 2 * 3 if with_images else 0
+    masks = cfg.OBJ.MAX_OBJECTS * cfg.OBJ.SHAPE_SIZE ** 2 if with_masks else 0
+    layout = cfg.OBJ.MAX_OBJECTS * (4 * 4 + 4 + 4)  # boxes f32 + label + valid
+    caps = 5 * (cfg.TEXT.WORDS_NUM * 4 + 8)
+    return img + masks + layout + caps
+
+
+def _cgroup_mem_limit(proc_file: str = "/proc/self/cgroup",
+                      v2_root: str = "/sys/fs/cgroup",
+                      v1_root: str = "/sys/fs/cgroup/memory"
+                      ) -> Optional[int]:
+    """Tightest memory limit over this process's own cgroup and every
+    ancestor up to the mount root. ``/proc/self/cgroup`` names the group
+    the process lives in: a job can be limited in a nested group while the
+    mount root stays unlimited."""
+    groups = []  # (controller mount root, limit filename, group path)
+    try:
+        for line in open(proc_file):
+            parts = line.strip().split(":", 2)
+            if len(parts) != 3:
+                continue
+            _, ctrls, path = parts
+            if ctrls == "":  # cgroup v2 unified hierarchy
+                groups.append((v2_root, "memory.max", path))
+            elif "memory" in ctrls.split(","):  # v1 memory controller
+                groups.append((v1_root, "memory.limit_in_bytes", path))
+    except OSError:
+        pass
+    if not groups:  # /proc unreadable: fall back to the mount roots
+        groups = [(v2_root, "memory.max", "/"),
+                  (v1_root, "memory.limit_in_bytes", "/")]
+    best = None
+    for root, fname, rel in groups:
+        segs = [s for s in rel.strip("/").split("/") if s]
+        # leaf -> root: a limit can sit on any ancestor; in a cgroup
+        # namespace the own path may not exist under the host mount, and
+        # the walk then reads the mount root
+        for i in range(len(segs), -1, -1):
+            try:
+                raw = open(os.path.join(root, *segs[:i], fname)).read()
+            except OSError:
+                continue
+            raw = raw.strip()
+            if raw.isdigit():  # v2 writes "max" when unlimited
+                v = int(raw)
+                best = v if best is None else min(best, v)
+    return best
+
+
+def _physical_ram_bytes() -> int:
+    """Memory available to this process: the host's physical RAM, clamped
+    by the tightest cgroup limit (sysconf sees the host's RAM, not the
+    container's)."""
+    try:
+        ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        if ram <= 0:  # sysconf returns -1 (no exception) for indeterminate
+            ram = 16 << 30
+    except (AttributeError, ValueError, OSError):  # non-POSIX fallback
+        ram = 16 << 30
+    limit = _cgroup_mem_limit()
+    if limit is not None:
+        ram = min(ram, limit)
+    return ram
+
+
+def wire_cache_allowed(cfg: Config, n_records: int,
+                       cache_limit: Optional[int] = None,
+                       with_images: bool = True,
+                       with_masks: bool = True) -> bool:
+    """All-or-nothing wire-cache policy: an explicit ``cache_limit`` wins;
+    otherwise the dataset's predicted footprint must fit a quarter of
+    physical RAM (room left for the prefetch queue, model state and the
+    page cache that serves image decode)."""
+    if cache_limit is not None:
+        return n_records <= cache_limit
+    budget = _physical_ram_bytes() // 4
+    per = wire_record_bytes(cfg, with_images, with_masks)
+    return n_records * per <= budget
 
 
 def validate_vocab(cfg: Config, vocab) -> None:

@@ -15,7 +15,9 @@ the features of a DAMSM lite encoder with fresh weights (seed 0; the JAX
 package draws its own, so the two packages' lite numbers lie in different
 feature spaces); ``--strict`` scores Inception-v3 (torchvision weights from
 ``--inception_pth``; without them only with ``--force``, and the numbers
-mean nothing). Runs on the CUDA device unless ``--device`` says otherwise.
+mean nothing). ``--grain`` reads the held-out batches from ``WORKERS``
+worker processes. Runs on the CUDA device unless ``--device`` says
+otherwise.
 """
 
 from __future__ import annotations
@@ -23,8 +25,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-_LATER = ("Not ported yet (ROADMAP.md): the Grain multi-worker feed "
-          "(--grain) and loading a JAX (Orbax) checkpoint.")
+_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
 
 
 def main(argv=None) -> None:
@@ -38,7 +39,8 @@ def main(argv=None) -> None:
                     help="sets DATA_DIR, the directory the manifest's "
                          "image_file paths are relative to")
     ap.add_argument("--grain", action="store_true",
-                    help="refused: the Grain feed is not ported yet")
+                    help="the multi-worker host feed: WORKERS worker "
+                         "processes (data/grain_feed.py)")
     ap.add_argument("--num_batches", type=int, default=10)
     ap.add_argument("--strict", action="store_true",
                     help="full Inception-v3 activations (standard FID/IS)")
@@ -73,9 +75,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
-    if args.grain:
-        ap.error("--grain: the Grain multi-worker feed is not ported yet "
-                 "(ROADMAP.md, Queue 1)")
     if args.real_stats == "all" and not args.manifest:
         ap.error("--real_stats all needs --manifest (the whole-dataset "
                  "real side is defined by a manifest; without one the "
@@ -99,7 +98,8 @@ def main(argv=None) -> None:
     # the held-out split: evaluation never reads the training records
     cfg = cfg.merged({"TRAIN": {"FLAG": False}})
     feed, _, vocab = build_feed(cfg, args.manifest, args.captions_pickle,
-                                seed=args.eval_seed, augment=args.aug_eval)
+                                seed=args.eval_seed, augment=args.aug_eval,
+                                grain=args.grain)
     cli.evaluate(cfg, feed, args.num_batches, strict=args.strict,
                  real_stats=args.real_stats, manifest=args.manifest,
                  inception_pth=args.inception_pth,

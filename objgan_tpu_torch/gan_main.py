@@ -8,17 +8,17 @@ metrics CSV and attention grids under ``OUTPUT_DIR/<CONFIG_NAME>_gan``;
 resumes from its newest checkpoint) and sampling from ``TRAIN.NET_G`` (PNGs
 under ``OUTPUT_DIR``). Both load the DAMSM encoders of ``TRAIN.NET_E``
 (``python -m objgan_tpu_torch.pretrain_damsm``). Without ``--manifest``
-they run on synthetic COCO-shaped batches. Runs on the CUDA device unless
-``--device`` says otherwise.
+they run on synthetic COCO-shaped batches. ``--wire`` feeds uint8 wire
+batches that the trainer expands on the device, ``--grain`` feeds from
+``WORKERS`` worker processes. Runs on the CUDA device unless ``--device``
+says otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire), the "
-          "Grain multi-worker feed (--grain) and loading a JAX (Orbax) "
-          "checkpoint.")
+_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
 
 
 def main(argv=None) -> None:
@@ -35,6 +35,13 @@ def main(argv=None) -> None:
     ap.add_argument("--data_dir", default=None,
                     help="sets DATA_DIR, the directory the manifest's "
                          "image_file paths are relative to")
+    ap.add_argument("--wire", action="store_true",
+                    help="compact uint8 wire batches + device-side "
+                         "pyramid (data/wire.py; ~5x fewer host->device "
+                         "bytes, cached host transform)")
+    ap.add_argument("--grain", action="store_true",
+                    help="the multi-worker host feed: WORKERS worker "
+                         "processes (data/grain_feed.py)")
     ap.add_argument("--max_steps", type=int, default=10 ** 9,
                     help="training: steps to reach (default: MAX_EPOCH "
                          "epochs of the manifest)")
@@ -54,7 +61,8 @@ def main(argv=None) -> None:
     if args.data_dir:
         cfg = cfg.replace(DATA_DIR=args.data_dir)
     feed, n_records, vocab = build_feed(cfg, args.manifest,
-                                        args.captions_pickle)
+                                        args.captions_pickle, wire=args.wire,
+                                        grain=args.grain)
     if cfg.TRAIN.FLAG:
         cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records,
                                                   args.max_steps)

@@ -8,21 +8,18 @@ Trains the DAMSM text and image encoders on the manifest's records
 (synthetic batches without ``--manifest``), writes keep-3 checkpoints, the
 metrics CSV and attention-grid snapshots under
 ``OUTPUT_DIR/<CONFIG_NAME>_damsm``, and resumes from its newest checkpoint
-when run again. Stage C loads the encoders through ``TRAIN.NET_E``. Runs
-on the CUDA device unless ``--device`` says otherwise.
+when run again. Stage C loads the encoders through ``TRAIN.NET_E``.
+``--wire`` and ``--grain`` choose the feed as ``gan_main``'s do. Runs on
+the CUDA device unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire) and "
-          "the Grain multi-worker feed (--grain).")
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="DAMSM text/image encoder pretraining.", epilog=_LATER)
+        description="DAMSM text/image encoder pretraining.")
     ap.add_argument("--cfg", dest="cfg_file", default=None,
                     help="reference-style yml config (default: Config())")
     ap.add_argument("--manifest", default=None,
@@ -33,6 +30,13 @@ def main(argv=None) -> None:
     ap.add_argument("--data_dir", default=None,
                     help="sets DATA_DIR, the directory the manifest's "
                          "image_file paths are relative to")
+    ap.add_argument("--wire", action="store_true",
+                    help="compact uint8 wire batches + device-side "
+                         "pyramid (data/wire.py; ~5x fewer host->device "
+                         "bytes, cached host transform)")
+    ap.add_argument("--grain", action="store_true",
+                    help="the multi-worker host feed: WORKERS worker "
+                         "processes (data/grain_feed.py)")
     ap.add_argument("--max_steps", type=int, default=10 ** 9,
                     help="steps to reach (default: MAX_EPOCH epochs of the "
                          "manifest)")
@@ -51,7 +55,8 @@ def main(argv=None) -> None:
         cfg = cfg.replace(DATA_DIR=args.data_dir)
     # DAMSM reads images, captions and class ids: no per-object masks
     feed, n_records, vocab = build_feed(
-        cfg, args.manifest, args.captions_pickle, with_masks=False)
+        cfg, args.manifest, args.captions_pickle, with_masks=False,
+        wire=args.wire, grain=args.grain)
     cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
     cli.pretrain_damsm(cfg, feed, max_steps=max_steps, device=args.device,
                        log_every=args.log_every,

@@ -11,16 +11,16 @@ and instance masks (no images are read; synthetic batches without
 ``--manifest``): metric lines, keep-3 checkpoints and the metrics CSV under
 ``OUTPUT_DIR/<CONFIG_NAME>_shape``, resumed from its newest checkpoint.
 With ``--eval``, the held-out mask IoU, pixel accuracy and area ratio of
-the newest checkpoint. Runs on the CUDA device unless ``--device`` says
-otherwise.
+the newest checkpoint, on classic batches whatever ``--wire`` says.
+``--wire`` trains on uint8 wire batches (masks 255-quantised). Runs on
+the CUDA device unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
 
-_LATER = ("Not ported yet (ROADMAP.md): the uint8 wire feed (--wire) and "
-          "loading a JAX (Orbax) checkpoint.")
+_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
 
 
 def main(argv=None) -> None:
@@ -29,7 +29,8 @@ def main(argv=None) -> None:
     ap.add_argument("--cfg", dest="cfg_file", default=None)
     ap.add_argument("--manifest", default=None)
     ap.add_argument("--wire", action="store_true",
-                    help="refused: the uint8 wire feed is not ported yet")
+                    help="compact uint8 wire batches (data/wire.py); "
+                         "--eval reads classic batches")
     ap.add_argument("--captions_pickle", default=None)
     ap.add_argument("--data_dir", default=None,
                     help="sets DATA_DIR, the directory the manifest's "
@@ -43,9 +44,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
-    if args.wire:
-        ap.error("--wire: the uint8 wire feed is not ported yet "
-                 "(ROADMAP.md, Queue 1)")
 
     from objgan_tpu_torch import cli
     from objgan_tpu_torch.core.config import Config, cfg_from_file
@@ -57,6 +55,7 @@ def main(argv=None) -> None:
     if args.eval:
         # the sampling path: B_VALIDATION serves the held-out split
         cfg = cfg.merged({"TRAIN": {"FLAG": False}})
+        # no --wire: the mask metrics read batch["shapes"] on the host
         feed, _, _ = build_feed(cfg, args.manifest, args.captions_pickle,
                                 with_images=False)
         cli.eval_shape(cfg, feed, num_batches=args.num_batches,
@@ -64,7 +63,7 @@ def main(argv=None) -> None:
         return
     # Stage B reads layouts and instance masks, never photos
     feed, n_records, _ = build_feed(cfg, args.manifest, args.captions_pickle,
-                                    with_images=False)
+                                    with_images=False, wire=args.wire)
     cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
     cli.train_shape(cfg, feed, max_steps=max_steps, device=args.device,
                     log_every=args.log_every)

@@ -88,6 +88,8 @@ class BoxTrainer(Trainer):
 
     def loss(self, batch: Dict, flips: Optional[torch.Tensor] = None):
         """(total, metrics) of the teacher-forced pass on ``batch``."""
+        # a layout-only wire batch (--wire) carries neither image_u8 nor
+        # shapes_u8: it is read as it comes, with no from_wire
         c = self.cfg
         out = self.model.teacher_forced(batch["captions"], batch["cap_lens"],
                                         batch["labels"], batch["boxes"],

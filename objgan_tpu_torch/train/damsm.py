@@ -21,6 +21,7 @@ import torch
 
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import init_weights
+from objgan_tpu_torch.data.wire import from_wire
 from objgan_tpu_torch.losses.damsm_loss import damsm_loss
 from objgan_tpu_torch.models.damsm import (build_image_encoder,
                                            build_text_encoder)
@@ -59,7 +60,8 @@ class DamsmTrainer(Trainer):
     def losses(self, batch: Dict, keep_mask: torch.Tensor):
         """(total loss, metrics) of one step: the text encoder with dropout
         by ``keep_mask`` (B, T, GLOVE_DIM), the image encoder on the finest
-        images."""
+        images. A wire batch is expanded on the batch's device first."""
+        batch = from_wire(self.cfg, batch)
         words, sent = self.text_enc(batch["captions"], batch["cap_lens"],
                                     keep_mask)
         regions, global_f = self.img_enc(batch["images"][-1])

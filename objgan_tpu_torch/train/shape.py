@@ -31,6 +31,7 @@ from torch.func import functional_call
 
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import init_weights
+from objgan_tpu_torch.data.wire import from_wire
 from objgan_tpu_torch.losses.gan_loss import shape_d_loss, shape_g_loss
 from objgan_tpu_torch.models.shape_generator import (ShapeDiscriminator,
                                                      ShapeGenerator)
@@ -123,7 +124,9 @@ class ShapeTrainer(Trainer):
 
     def losses(self, batch: Dict, z: torch.Tensor):
         """(d_loss + g_loss, metrics) of one step on ``batch`` (boxes,
-        labels, obj_valid and the ground-truth masks ``shapes``)."""
+        labels, obj_valid and the ground-truth masks ``shapes``, or a wire
+        batch's ``shapes_u8``, expanded here)."""
+        batch = from_wire(self.cfg, batch)
         boxes, valid = batch["boxes"], batch["obj_valid"]
         shapes = batch["shapes"]
         labels_emb = self.label_table[batch["labels"].long()]

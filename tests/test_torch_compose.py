@@ -16,8 +16,9 @@ served from the port's checkpoints, and the port's new entry points.
 * A finite feed ends ``train_gan``, ``pretrain_damsm``, ``train_box`` and
   ``train_shape`` with its last step saved.
 * ``box_train``, ``box_sample``, ``shape_main`` and ``sample_pipeline`` run
-  in subprocesses that import neither JAX nor the JAX package; ``--wire``
-  is refused.
+  in subprocesses that import neither JAX nor the JAX package. ``--wire``
+  is no longer refused (the wire feed is ported, ``tests/test_torch_wire.py``
+  runs it): the only refusal their help names is a JAX (Orbax) checkpoint.
 """
 
 import csv
@@ -392,12 +393,18 @@ def test_entry_point_runs_without_jax(tmp_path, name):
 @pytest.mark.parametrize("module", ["box_train", "box_sample",
                                     "shape_main"])
 def test_wire_is_refused(module, capsys):
+    """``--wire`` is accepted now; what is still refused is loading a JAX
+    (Orbax) checkpoint, which the help's epilog names."""
     import importlib
 
     main = importlib.import_module(f"objgan_tpu_torch.{module}").main
-    with pytest.raises(SystemExit):
-        main(["--wire", "--device", "cpu"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        main(["--wire", "--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "compact uint8 wire batches" in out
+    assert "refused" not in out and "wire feed" not in out
+    assert "ROADMAP.md" in out and "Orbax" in out
 
 
 def test_box_sample_eval_and_shape_eval_run_on_cpu(tmp_path, capsys):

@@ -28,10 +28,12 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# a subprocess that imported any of these broke the port's rule
+# a subprocess that imported any of these broke the port's rule (Grain is
+# not on the card's host: the worker feed is the port's own)
 FORBIDDEN_MODULES = (
-    "bad = [m for m in sys.modules if m in ('jax', 'objgan_tpu') or "
-    "m.startswith(('jax.', 'flax', 'optax', 'orbax', 'objgan_tpu.'))]\n"
+    "bad = [m for m in sys.modules if m in ('jax', 'objgan_tpu', 'grain') "
+    "or m.startswith(('jax.', 'flax', 'optax', 'orbax', 'objgan_tpu.', "
+    "'grain.'))]\n"
     "assert not bad, bad\n")
 
 CAPS = ["Two dogs play in the PARK.", "a man riding a wave on a surfboard",
@@ -173,8 +175,9 @@ from objgan_tpu_torch.data import pipeline as tpipe  # noqa: E402
 @pytest.fixture(scope="module")
 def manifest(tmp_path_factory):
     """A 12-record procedural COCO manifest at 64 px (PNG files, polygon
-    segmentations), written by the JAX package's generator."""
-    from objgan_tpu.data.procedural import build_manifest
+    segmentations), written by the port's generator
+    (``tests/test_torch_feed.py`` holds it equal to JAX's)."""
+    from objgan_tpu_torch.data.procedural import build_manifest
 
     return build_manifest(str(tmp_path_factory.mktemp("proc")), n_images=12,
                           size=64, seed=0)
@@ -236,8 +239,8 @@ def test_coco_feed_copy_matches_original(manifest, source, with_masks,
                                                 (True, False)])
 def test_build_feed_matches_gan_main(manifest, b_validation, train):
     """``data/feed.py::build_feed`` against ``gan/main.py::build_feed`` (one
-    process; both read images under DATA_DIR): the record count, the
-    vocabulary and two batches."""
+    process; both read images under DATA_DIR), classic and with
+    ``--wire``: the record count, the vocabulary and two batches."""
     import types
 
     from gan.main import build_feed as jax_build_feed
@@ -246,16 +249,20 @@ def test_build_feed_matches_gan_main(manifest, b_validation, train):
             "DATA_DIR": os.path.dirname(manifest),
             "TRAIN": {"BATCH_SIZE": 4, "FLAG": train}}
     jc, tc = _feed_cfgs(**over)
-    args = types.SimpleNamespace(manifest=manifest, captions_pickle=None)
-    want_feed, want_n, want_vocab = jax_build_feed(jc, args,
-                                                   with_masks=train)
-    got_feed, got_n, got_vocab = tfeed.build_feed(tc, manifest,
-                                                  with_masks=train)
-    assert got_n == want_n == (11 if b_validation and train else
-                               1 if b_validation else 12)
-    assert got_vocab.wordtoix == want_vocab.wordtoix
-    for _ in range(2):
-        _assert_batches_equal(next(got_feed), next(want_feed))
+    for wire in (False, True):
+        args = types.SimpleNamespace(manifest=manifest, captions_pickle=None,
+                                     wire=wire)
+        want_feed, want_n, want_vocab = jax_build_feed(jc, args,
+                                                       with_masks=train)
+        got_feed, got_n, got_vocab = tfeed.build_feed(
+            tc, manifest, with_masks=train, wire=wire)
+        assert got_n == want_n == (11 if b_validation and train else
+                                   1 if b_validation else 12)
+        assert got_vocab.wordtoix == want_vocab.wordtoix
+        for _ in range(2):
+            got = next(got_feed)
+            assert ("image_u8" in got) == wire
+            _assert_batches_equal(got, next(want_feed))
     assert tfeed.build_feed(tc, None) == (None, 0, None)
 
 

@@ -418,7 +418,7 @@ _LINES = ("eval over 8 samples [lite (framework encoder)]", "NOTE: FID over",
 
 @pytest.fixture(scope="module")
 def manifest(tmp_path_factory):
-    from objgan_tpu.data.procedural import build_manifest
+    from objgan_tpu_torch.data.procedural import build_manifest
 
     return build_manifest(str(tmp_path_factory.mktemp("proc")), n_images=12,
                           size=64, seed=0)
@@ -453,7 +453,10 @@ def test_eval_guard_rails(capsys):
         main(["--strict", "--device", "cpu"])
     assert exc.value.code == 2
     assert "--inception_pth" in capsys.readouterr().err
-    for argv, says in ((["--grain"], "ROADMAP.md"),
+    # --grain is accepted (the worker feed is ported): the guard that
+    # remains is the manifest --real_stats all needs, with it or without
+    for argv, says in ((["--grain", "--real_stats", "all"],
+                        "needs --manifest"),
                        (["--real_stats", "all"], "needs --manifest")):
         with pytest.raises(SystemExit):
             main(argv + ["--device", "cpu"])
