@@ -150,9 +150,24 @@ and strict); and checks every hand-written kernel on them:
                 worker feed's ms per batch at 0 and WORKERS workers,
                 classic and wire, at batch 48; ``cli.evaluate`` with
                 ``--grain`` on that Stage-C checkpoint, 2 batches.
-26. processes   no process that the smoke started is left: the worker
+26. ddp         data parallelism: ``python -m torch.distributed.run
+                --nproc_per_node=1 -m objgan_tpu_torch.gan_main`` (NCCL,
+                world size 1) for DDP_STEPS steps at ``coco_objgan``
+                width: finite metrics, rank 0's checkpoint and CSV, K1-K3
+                launched as often per step as in phase 6, its metrics
+                against phase 6's first steps; ``parallel.dryrun.run(2,
+                cuda, gloo)``: two ranks on this one card against this
+                process at world size 1, 2 tiny fp32 steps of Stage C
+                (with EMA sampling), DAMSM, Stage A and Stage B (metrics
+                within 2e-3, pixels within 5e-3, each rank launching
+                what world size 1 launches) and 3 bf16 Stage-C steps at
+                ``coco_objgan`` width (finite, the ranks' parameters
+                bitwise equal, K1-K3 at phase 6's counts), ms per step at
+                world sizes 1 and 2 side by side;
+27. processes   no process that the smoke started is left: the worker
                 feeds' fork server stopped with the last feed, and the
-                resource tracker it started stops here.
+                resource tracker it started stops here (the ranks and
+                torchrun's agent of phase 26 included).
 
 Times are device time from CUDA events around a CUDA-graph replay of one
 call, median of 20, unless a line says otherwise. K1, K2, K3 and
@@ -170,6 +185,7 @@ summary JSON, the card's ``name, power.limit`` from nvidia-smi, and
 
 import concurrent.futures
 import copy
+import csv
 import json
 import math
 import os
@@ -203,6 +219,7 @@ TRAIN_STEPS = 6
 DAMSM_STEPS = 6
 BOX_STEPS = 5
 SHAPE_STEPS = 5
+DDP_STEPS = 2
 EVAL_BATCHES = 16  # 256 samples
 DATA_DIR = "data_proc2k"  # the manifest's image_file paths are under it
 MANIFEST = os.path.join(DATA_DIR, "manifest.json")
@@ -769,8 +786,12 @@ def phase_train(cfg):
         f"{k} {seen[-1][k]:.4g}" for k in ("d_loss", "g_loss", "objd_real",
                                            "objd_fake", "objd_cls", "g_obj",
                                            "damsm", "kl")))
+    with open(os.path.join(cfg.OUTPUT_DIR, f"{cfg.CONFIG_NAME}_gan",
+                           "gan_metrics.csv")) as f:
+        rows = [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
     return trainer, {"k1": k1, "k2": k2, "k3": k3, "ms": median,
-                     "k1_per_step": k1 // TRAIN_STEPS}
+                     "k1_per_step": k1 // TRAIN_STEPS, "rows": rows}
 
 
 def _device_profile(fn):
@@ -2710,6 +2731,139 @@ def phase_feed(k1_per_step):
     return {"launches": {"K1": k1, "K2": k2, "K3": k3}, "errs": errs}
 
 
+def _ddp_entry(argv):
+    """``chip_smoke.py --entry MODULE COUNTS ARGS...``, what phase ddp has
+    torchrun start in each rank: MODULE's entry point with ARGS, as ``python
+    -m MODULE ARGS`` runs it, then the rank's kernel launches written to
+    COUNTS.<rank> as JSON."""
+    import runpy
+
+    module, counts, *args = argv
+    sys.path.insert(0, ROOT)
+    sys.argv = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    k1, k2, k3 = _counts()
+    with open(f"{counts}.{os.environ['RANK']}", "w") as f:
+        json.dump({"K1": k1, "K2": k2, "K3": k3}, f)
+    return 0
+
+
+def phase_ddp(train):
+    """Data parallelism: (a) ``gan_main`` under torchrun, one rank on NCCL,
+    at ``cfg/coco_objgan.yml`` width, against phase train's first steps;
+    (b, c) ``parallel.dryrun.run(2, cuda, gloo)``: two ranks on this card
+    against this process at world size 1, Stage C (tiny fp32, with EMA
+    sampling), DAMSM, Stage A and Stage B (tiny fp32), and bf16 Stage-C
+    steps at ``coco_objgan`` width."""
+    import yaml
+
+    from objgan_tpu_torch.parallel import dryrun
+
+    per_step = {k: train[k.lower()] // TRAIN_STEPS for k in ("K1", "K2",
+                                                             "K3")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    with open(os.path.join(ROOT, "cfg", "coco_objgan.yml")) as f:
+        raw = yaml.safe_load(f)
+    raw["OUTPUT_DIR"] = os.path.join(tmp, "out")
+    yml = os.path.join(tmp, "coco_objgan.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(raw, f)
+    counts = os.path.join(tmp, "counts")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", os.path.abspath(__file__), "--entry",
+         "objgan_tpu_torch.gan_main", counts, "--cfg", yml, "--max_steps",
+         str(DDP_STEPS), "--log_every", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_a = time.monotonic() - t0
+    check(proc.returncode == 0, f"torchrun gan_main failed (rc "
+          f"{proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    stage = os.path.join(tmp, "out", f"{raw['CONFIG_NAME']}_gan")
+    check(os.listdir(os.path.join(stage, "ckpt")) == [str(DDP_STEPS)],
+          f"torchrun gan_main: checkpoints {os.listdir(stage)}")
+    with open(os.path.join(stage, "gan_metrics.csv")) as f:
+        rows = [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+    check([r["step"] for r in rows] == list(range(1, DDP_STEPS + 1)),
+          f"torchrun gan_main wrote rows for steps {[r['step'] for r in rows]}")
+    skip = ("step", "wall_s", "steps_per_sec")
+    bad = [k for r in rows for k, v in r.items() if not math.isfinite(v)]
+    check(not bad, f"torchrun gan_main: non-finite metrics {bad}")
+    # per step: step 1 runs on the same weights, so it shows what the
+    # group changes; step 2 adds the first update's nondeterminism
+    per = [(max(abs(r[k] - w[k]) for k in r if k not in skip),
+            max(abs(r[k] - w[k]) / max(abs(w[k]), 1e-6) for k in r
+                if k not in skip))
+           for r, w in zip(rows, train["rows"])]
+    a_err = max(e for e, _ in per)
+    with open(f"{counts}.0") as f:
+        a_launch = json.load(f)
+    want = {k: v * DDP_STEPS for k, v in per_step.items()}
+    check(a_launch == want, f"torchrun gan_main launched {a_launch}, phase "
+          f"train's counts for {DDP_STEPS} steps are {want}")
+    diffs = ", ".join(f"step {i + 1} max |d| {e:.3g} (rel {r:.3g})"
+                      for i, (e, r) in enumerate(per))
+    log("ddp", f"(a) python -m torch.distributed.run --nproc_per_node=1 -m "
+        f"objgan_tpu_torch.gan_main --cfg coco_objgan --max_steps "
+        f"{DDP_STEPS}: NCCL, world size 1, {wall_a:.1f} s with start-up; "
+        f"rank 0 wrote the step-{DDP_STEPS} checkpoint and the metrics CSV; "
+        f"every metric finite; launches {a_launch} (phase train's per step "
+        f"{per_step}); against phase train's first {DDP_STEPS} steps (no "
+        f"group, same seed and batches): {diffs}; ms per step " + ", ".join(
+            f"{1000.0 / r['steps_per_sec']:.1f}" for r in rows))
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.monotonic()
+    res = dryrun.run(2, "cuda", "gloo", bf16=os.path.join(
+        ROOT, "cfg", "coco_objgan.yml"))
+    wall_b = time.monotonic() - t0
+    log("ddp", f"(b, c) parallel.dryrun.run(2, cuda, gloo) in {wall_b:.1f} "
+        f"s: " + dryrun.summary(2, res))
+    errs = {"K1": a_err, "K2": a_err, "K3": a_err}
+    launches = {k: v for k, v in a_launch.items()}
+    for name, r in res["stages"].items():
+        ran = [k for k in ("K1", "K2", "K3") if r["launches_1"][k]]
+        for rank, got in enumerate(r["launches"]):
+            check(got == r["launches_1"], f"{name}: rank {rank} launched "
+                  f"{got}, world size 1 {r['launches_1']}")
+            for k in ran:
+                launches[k] += got[k]
+        out = max(r["abs"], r.get("pixel_err", 0.0))
+        for k in ran:
+            errs[k] = max(errs[k], out)
+        log("ddp", f"{name}: launches per rank {r['launches'][0]} (world "
+            f"size 1: {r['launches_1']}), metrics max |d| {r['abs']:.3g}, "
+            f"rel {r['rel']:.3g} ({r['worst']}), state max |d| "
+            f"{r['state_err']:.3g}" + (f", sampled pixels max |d| "
+                                       f"{r['pixel_err']:.3g}"
+                                       if "pixel_err" in r else ""))
+    check(all(res["stages"]["gan"]["launches_1"][k] for k in per_step),
+          "the tiny Stage-C steps launched no K1, K2 or K3")
+    for k in ("damsm", "shape"):
+        check(res["stages"][k]["launches_1"]["K1"] > 0,
+              f"the tiny {k} steps launched no K1")
+    bf = res["bf16"]
+    want = {k: v * dryrun.BF16_STEPS for k, v in per_step.items()}
+    for rank, got in enumerate(bf["ranks"]):
+        check(got["launches"] == want, f"bf16: rank {rank} launched "
+              f"{got['launches']}, phase train's counts {want}")
+        for k in launches:
+            launches[k] += got["launches"][k]
+    ms1 = statistics.median(bf["one"]["ms"][1:])
+    ms2 = statistics.median(bf["ranks"][0]["ms"][1:])
+    log("ddp", f"bf16 coco_objgan, global batch {bf['one']['batch']}: "
+        f"{dryrun.BF16_STEPS} steps finite, parameters bitwise equal on both "
+        f"ranks, launches per rank {bf['ranks'][0]['launches']}; "
+        f"synchronised ms per step after the first: world size 1 "
+        f"{ms1:.1f} (batch {bf['one']['batch']}), world size 2 {ms2:.1f} "
+        f"(batch {bf['one']['batch'] // 2} per rank; both ranks on this one "
+        f"card over gloo through the host, so this is no measure of NCCL "
+        f"across cards)")
+    return {"launches": launches, "errs": errs, "ms_1": ms1, "ms_2": ms2,
+            "a": a_launch}
+
+
 def _child_processes():
     """(pid, command line) of every running process whose parent is this
     one, from /proc."""
@@ -2809,6 +2963,7 @@ def main():
     phase_shape_vgg(shape["device_ms"])
     phase_small_eval()
     feed = phase_feed(train["k1_per_step"])
+    ddp = phase_ddp(train)
     phase_processes()
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
@@ -2828,6 +2983,8 @@ def main():
         # calls (F.group_norm, F.glu) for a GN+GLU
         "feed": {"launches": feed["launches"]["K1"],
                  "max_abs_err": feed["errs"]["K1"]},
+        "ddp": {"launches": ddp["launches"]["K1"],
+                "max_abs_err": ddp["errs"]["K1"]},
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "library_ms": r["library_ms"], "regimes": r["regimes"],
@@ -2853,6 +3010,8 @@ def main():
             "ms_10_per_graph": r["ms_10_per_graph"],
             "feed": {"launches": feed["launches"][key],
                      "max_abs_err": feed["errs"][key]},
+            "ddp": {"launches": ddp["launches"][key],
+                    "max_abs_err": ddp["errs"][key]},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2863,6 +3022,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--entry"]:
+        sys.exit(_ddp_entry(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as exc:

@@ -21,6 +21,17 @@ saved.
 
 Everything runs on ``device`` ("cuda" unless the caller says otherwise);
 nothing moves to the CPU on its own.
+
+The four trainers run data-parallel under ``torchrun``
+(``parallel/sharding.py``): each first joins the process group that
+torchrun's environment describes (``cuda`` becomes ``cuda:LOCAL_RANK``;
+NCCL on the card, gloo on the CPU), checks that the data axis divides
+``TRAIN.BATCH_SIZE``, and feeds its rows of the global batch; a synthetic
+batch is drawn from (``RNG_SEED``, step, rank) with class ids from the
+start of the rank's rows. The steps equal one process's on the global
+batch. Rank 0 writes the checkpoints (the other ranks wait for it), the
+metrics and the grids; every rank restores and then takes rank 0's state.
+Without such an environment one process runs as before.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from objgan_tpu_torch.core.metrics import MetricsWriter
 from objgan_tpu_torch.core.precision import true_fp32
 from objgan_tpu_torch.data.synthetic import synthetic_batch
 from objgan_tpu_torch.data.wire import WIRE_IMAGE, from_wire
+from objgan_tpu_torch.parallel import sharding
 from objgan_tpu_torch.train.box import BoxTrainer, box_noise, ss_flips
 from objgan_tpu_torch.train.common import Trainer, step_generator
 from objgan_tpu_torch.train.damsm import DamsmTrainer
@@ -56,12 +68,33 @@ def _out_dir(cfg: Config, stage: str) -> str:
     return d
 
 
+def _join_group(cfg: Config, device) -> torch.device:
+    """A trainer's first act: join torchrun's process group when its
+    environment is there, check that the data axis divides the global
+    batch, and return this rank's device."""
+    sharding.maybe_initialize_distributed(device)
+    sharding.local_batch_size(cfg.TRAIN.BATCH_SIZE,
+                              sharding.make_mesh(cfg.MESH.MODEL_PARALLELISM))
+    return sharding.rank_device(device)
+
+
+def _restore(manager: CheckpointManager, trainer: Trainer) -> None:
+    """Every rank restores the newest checkpoint, then takes rank 0's
+    state."""
+    restored = manager.restore_latest(trainer)
+    sharding.broadcast_module_(trainer)
+    if restored is not None:
+        print(f"resumed from step {restored}")
+
+
 def _already_trained(out: str, stage: str, max_steps: int) -> bool:
     """True (and says so) when the stage's newest checkpoint already reaches
-    ``max_steps``, found by a directory scan before any model is built."""
+    ``max_steps``, found by a directory scan (rank 0's) before any model is
+    built."""
     if max_steps >= 10 ** 9:
         return False
-    latest = latest_step_in(os.path.join(out, "ckpt"))
+    latest = sharding.broadcast_object(
+        latest_step_in(os.path.join(out, "ckpt")))
     if latest is not None and latest >= max_steps:
         print(f"{stage}: checkpoint at step {latest} >= max_steps "
               f"{max_steps}; nothing to do")
@@ -109,11 +142,16 @@ def to_device(batch: Dict, device) -> Dict:
 def synthetic_feed(cfg: Config, device, start: int = 0,
                    with_images: bool = True) -> Iterator[Dict]:
     """Endless synthetic COCO-shaped batches on ``device``; batch i is drawn
-    from (RNG_SEED, i), starting at ``start``."""
+    from (RNG_SEED, i), starting at ``start``. Under data parallelism a
+    rank draws its rows from (RNG_SEED, i, rank), their class ids counted
+    from the start of its rows, as JAX's ``_feed`` does."""
+    rank, _ = sharding.rank_and_world()
+    first, rows = sharding.process_local_batch_slice(cfg.TRAIN.BATCH_SIZE)
     for i in itertools.count(start):
         yield synthetic_batch(cfg, step_generator(cfg.RNG_SEED, i, device,
-                                                  _DATA),
-                              with_images=with_images)
+                                                  _DATA, rank),
+                              batch=rows, with_images=with_images,
+                              id_offset=first)
 
 
 def _finest_scale_only(feed: Iterator[Dict]) -> Iterator[Dict]:
@@ -131,6 +169,42 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def gan_step(cfg: Config, trainer: GanTrainer, batch: Dict, step: int,
+             device) -> Dict[str, torch.Tensor]:
+    """One Stage-C step on a batch on ``device``, its noise drawn from
+    (RNG_SEED, step)."""
+    noise = train_noise(cfg, batch["captions"].shape[0], step_generator(
+        cfg.RNG_SEED, step, device, _NOISE), device)
+    return trainer.train_step(batch, noise["z"], noise["ca_eps"])
+
+
+def damsm_step(cfg: Config, trainer: DamsmTrainer, batch: Dict, step: int,
+               device) -> Dict[str, torch.Tensor]:
+    """One DAMSM step, its dropout mask drawn from (RNG_SEED, step)."""
+    keep = trainer.text_enc.keep_mask(
+        batch["captions"], step_generator(cfg.RNG_SEED, step, device,
+                                          _NOISE))
+    return trainer.train_step(batch, keep)
+
+
+def box_step(cfg: Config, trainer: BoxTrainer, batch: Dict, step: int,
+             device) -> Dict[str, torch.Tensor]:
+    """One Stage-A step, its scheduled-sampling flips drawn from (RNG_SEED,
+    step)."""
+    b, o = batch["labels"].shape
+    flips = ss_flips(cfg, o, b, step_generator(cfg.RNG_SEED, step, device,
+                                               _NOISE), device)
+    return trainer.train_step(batch, flips)
+
+
+def shape_step(cfg: Config, trainer: ShapeTrainer, batch: Dict, step: int,
+               device) -> Dict[str, torch.Tensor]:
+    """One Stage-B step, its noise drawn from (RNG_SEED, step)."""
+    z = shape_noise(cfg, batch["labels"].shape[0], step_generator(
+        cfg.RNG_SEED, step, device, _NOISE), device)
+    return trainer.train_step(batch, z)
+
+
 def _run_loop(cfg: Config, trainer: Trainer,
               step_fn: Callable[[Dict, int], Dict], feed: Iterator[Dict],
               writer: MetricsWriter, manager: CheckpointManager,
@@ -144,7 +218,7 @@ def _run_loop(cfg: Config, trainer: Trainer,
     ``steps_per_sec`` over the steps since the previous row, synchronised.
     A checkpoint and a snapshot every ``SNAPSHOT_STEPS`` steps (500 when
     unset), and a checkpoint at the end; a step already saved is not
-    written again."""
+    written again. Rank 0 alone writes rows, checkpoints and snapshots."""
     step = trainer.step
     last_logged, t_last, logged_any = step, time.monotonic(), False
     snap_every = cfg.TRAIN.SNAPSHOT_STEPS or 500
@@ -165,7 +239,7 @@ def _run_loop(cfg: Config, trainer: Trainer,
             log(metrics)
         if step % snap_every == 0:
             manager.save(step, trainer)
-            if snapshot_hook is not None:
+            if snapshot_hook is not None and sharding.is_main():
                 snapshot_hook(step)
     if step != last_logged:  # the feed ended between rows
         log(metrics)
@@ -231,15 +305,13 @@ def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                                                   build_super_images,
                                                   save_png)
 
-    device = torch.device(device)
+    device = _join_group(cfg, device)
     out = _out_dir(cfg, "gan")
     if _already_trained(out, "gan", max_steps):
         return None
     trainer = _gan_trainer(cfg, device)
     manager = CheckpointManager(os.path.join(out, "ckpt"))
-    restored = manager.restore_latest(trainer)
-    if restored is not None:
-        print(f"resumed from step {restored}")
+    _restore(manager, trainer)
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step)
     first = next(feed)
@@ -248,10 +320,7 @@ def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     b = first_dev["captions"].shape[0]
 
     def step_fn(batch, step):
-        noise = train_noise(cfg, b, step_generator(cfg.RNG_SEED, step,
-                                                   device, _NOISE), device)
-        return trainer.train_step(to_device(batch, device), noise["z"],
-                                  noise["ca_eps"])
+        return gan_step(cfg, trainer, to_device(batch, device), step, device)
 
     def snapshot(step):
         noise = train_noise(cfg, b, step_generator(cfg.RNG_SEED, step,
@@ -325,17 +394,13 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     from objgan_tpu_torch.losses.damsm_loss import words_loss
     from objgan_tpu_torch.utils.visualize import build_super_images, save_png
 
-    device = torch.device(device)
+    device = _join_group(cfg, device)
     out = _out_dir(cfg, "damsm")
     if _already_trained(out, "damsm", max_steps):
         return None
-    true_fp32()
-    trainer = DamsmTrainer(cfg).init_state(
-        torch.Generator().manual_seed(cfg.RNG_SEED)).to(device)
+    trainer = fresh_trainer(cfg, DamsmTrainer(cfg), device)
     manager = CheckpointManager(os.path.join(out, "ckpt"))
-    restored = manager.restore_latest(trainer)
-    if restored is not None:
-        print(f"resumed from step {restored}")
+    _restore(manager, trainer)
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step)
     feed = _finest_scale_only(feed)
@@ -349,11 +414,8 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     smooth = cfg.TRAIN.SMOOTH
 
     def step_fn(batch, step):
-        batch = to_device(batch, device)
-        keep = trainer.text_enc.keep_mask(
-            batch["captions"], step_generator(cfg.RNG_SEED, step, device,
-                                              _NOISE))
-        return trainer.train_step(batch, keep)
+        return damsm_step(cfg, trainer, to_device(batch, device), step,
+                          device)
 
     @torch.no_grad()
     def snapshot(step):
@@ -382,7 +444,7 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
 # -- Stage A (boxes) and Stage B (masks) --------------------------------------
 
 
-def _stage_trainer(cfg: Config, trainer: Trainer, device) -> Trainer:
+def fresh_trainer(cfg: Config, trainer: Trainer, device) -> Trainer:
     """``trainer`` with fresh weights drawn on the CPU from ``RNG_SEED``
     (a seed gives the same weights on every device), on ``device``."""
     true_fp32()
@@ -414,24 +476,18 @@ def train_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     newest checkpoint. With ``BOX.SCHEDULED_SAMPLING_PROB`` > 0 a step's
     flips are drawn from (RNG_SEED, step). Returns the trainer, or None
     when the checkpoints already reach ``max_steps``."""
-    device = torch.device(device)
+    device = _join_group(cfg, device)
     out = _out_dir(cfg, "box")
     if _already_trained(out, "box", max_steps):
         return None
-    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    trainer = fresh_trainer(cfg, BoxTrainer(cfg), device)
     manager = CheckpointManager(os.path.join(out, "ckpt"))
-    restored = manager.restore_latest(trainer)
-    if restored is not None:
-        print(f"resumed from step {restored}")
+    _restore(manager, trainer)
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
 
     def step_fn(batch, step):
-        batch = to_device(batch, device)
-        b, o = batch["labels"].shape
-        flips = ss_flips(cfg, o, b, step_generator(cfg.RNG_SEED, step,
-                                                   device, _NOISE), device)
-        return trainer.train_step(batch, flips)
+        return box_step(cfg, trainer, to_device(batch, device), step, device)
 
     _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "box",
                                                          log_every),
@@ -452,7 +508,7 @@ def sample_box(cfg: Config, captions, cap_lens,
     import json
 
     device = torch.device(device)
-    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    trainer = fresh_trainer(cfg, BoxTrainer(cfg), device)
     _restore_for_sampling(cfg, trainer, "box", "sampling layouts")
     caps = torch.as_tensor(np.array(captions)).long().to(device)
     lens = torch.as_tensor(np.array(cap_lens)).long().to(device)
@@ -483,7 +539,7 @@ def eval_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     from objgan_tpu_torch.utils import box_eval
 
     device = torch.device(device)
-    trainer = _stage_trainer(cfg, BoxTrainer(cfg), device)
+    trainer = fresh_trainer(cfg, BoxTrainer(cfg), device)
     _restore_for_sampling(cfg, trainer, "box", "evaluating")
     if feed is None:
         feed = synthetic_feed(cfg, device, with_images=False)
@@ -511,23 +567,19 @@ def train_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     images; synthetic batches when None), resumed from the stage's newest
     checkpoint; a step's noise is drawn from (RNG_SEED, step). Returns the
     trainer, or None when the checkpoints already reach ``max_steps``."""
-    device = torch.device(device)
+    device = _join_group(cfg, device)
     out = _out_dir(cfg, "shape")
     if _already_trained(out, "shape", max_steps):
         return None
-    trainer = _stage_trainer(cfg, ShapeTrainer(cfg), device)
+    trainer = fresh_trainer(cfg, ShapeTrainer(cfg), device)
     manager = CheckpointManager(os.path.join(out, "ckpt"))
-    restored = manager.restore_latest(trainer)
-    if restored is not None:
-        print(f"resumed from step {restored}")
+    _restore(manager, trainer)
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
 
     def step_fn(batch, step):
-        batch = to_device(batch, device)
-        z = shape_noise(cfg, batch["labels"].shape[0], step_generator(
-            cfg.RNG_SEED, step, device, _NOISE), device)
-        return trainer.train_step(batch, z)
+        return shape_step(cfg, trainer, to_device(batch, device), step,
+                          device)
 
     _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "shape",
                                                          log_every),
@@ -543,7 +595,7 @@ def eval_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     from objgan_tpu_torch.utils import shape_eval
 
     device = torch.device(device)
-    trainer = _stage_trainer(cfg, ShapeTrainer(cfg), device)
+    trainer = fresh_trainer(cfg, ShapeTrainer(cfg), device)
     _restore_for_sampling(cfg, trainer, "shape", "evaluating")
     if feed is None:
         feed = synthetic_feed(cfg, device, with_images=False)

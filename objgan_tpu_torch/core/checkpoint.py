@@ -17,6 +17,10 @@ What is saved is a module's ``state_dict()``: for the trainers, every
 network's parameters and buffers, the Adam moments and the step
 (``train/common.py``). It is kept on the CPU in the file and copied onto
 the module's own device on restore.
+
+Under data parallelism (``parallel/sharding.py``) rank 0 writes and the
+other ranks wait for it; every rank restores, and the caller then
+broadcasts rank 0's state (``broadcast_module_``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from objgan_tpu_torch.parallel.sharding import barrier, is_main
 
 STATE_FILE = "state.pt"
 
@@ -82,7 +88,13 @@ class CheckpointManager:
 
     def save(self, step: int, module: nn.Module) -> bool:
         """Write ``module.state_dict()`` as step ``step``, unless that step
-        is already saved. Returns whether it wrote."""
+        is already saved; rank 0 writes, and every rank returns once it
+        has. Returns whether this process wrote."""
+        wrote = is_main() and self._write(step, module)
+        barrier()
+        return wrote
+
+    def _write(self, step: int, module: nn.Module) -> bool:
         final = os.path.join(self.directory, str(int(step)))
         if os.path.isdir(final):
             return False

@@ -2,7 +2,8 @@
 stdout. A copy of ``objgan_tpu/core/metrics.py::MetricsWriter`` without its
 optional TensorBoard branch (it imported tensorflow), so that the port
 imports nothing of the JAX package; ``tests/test_torch_data.py`` holds the
-two writers to identical CSV bytes.
+two writers to identical CSV bytes. Under data parallelism only rank 0
+writes and prints (the metrics are already averaged over the ranks).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import csv
 import os
 import time
 from typing import Mapping
+
+from objgan_tpu_torch.parallel.sharding import is_main
 
 
 class MetricsWriter:
@@ -26,6 +29,8 @@ class MetricsWriter:
         self._last_printed = None
 
     def write(self, step: int, metrics: Mapping[str, float]) -> None:
+        if not is_main():
+            return
         row = {"step": step, "wall_s": round(time.monotonic() - self._t0, 3)}
         row.update({k: float(v) for k, v in metrics.items()})
         if self._writer is None:

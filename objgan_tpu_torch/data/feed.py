@@ -1,8 +1,11 @@
 """The trainers' host feed from a dataset manifest. Port of
-``gan/main.py::build_feed`` for one process (global record ids: offset 0,
-stride 1): ``CocoFeed`` in the calling process, or with ``grain`` the
-worker-process feed of ``data/grain_feed.py``; either gives classic
-batches, or with ``wire`` the uint8 wire batches of ``data/wire.py``.
+``gan/main.py::build_feed``: ``CocoFeed`` in the calling process, or with
+``grain`` the worker-process feed of ``data/grain_feed.py``; either gives
+classic batches, or with ``wire`` the uint8 wire batches of
+``data/wire.py``. Under data parallelism (a process group, see
+``parallel/sharding.py``) each rank feeds its strided part of the records,
+``records[rank::world]``, at its rows of ``TRAIN.BATCH_SIZE``, with their
+global record ids (offset ``rank``, stride ``world``) as class ids.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.data.pipeline import (CocoFeed, load_records_json,
                                             split_records)
 from objgan_tpu_torch.data.tokenizer import Vocab
+from objgan_tpu_torch.parallel import sharding
 
 
 def build_feed(cfg: Config, manifest: Optional[str],
@@ -36,7 +40,9 @@ def build_feed(cfg: Config, manifest: Optional[str],
     ``image_file`` paths are relative to, by default ``cfg.DATA_DIR`` (the
     entry points' ``--data_dir`` sets it), as in the JAX package.
     ``wire``: uint8 wire batches (``--wire``); ``grain``: the batches come
-    from ``cfg.WORKERS`` worker processes (``--grain``)."""
+    from ``cfg.WORKERS`` worker processes (``--grain``). The number of
+    records is the global one, so ``cli.apply_epoch_schedule`` gives every
+    rank the schedule of one process."""
     if not manifest:
         return None, 0, None
     records = load_records_json(manifest)
@@ -51,14 +57,21 @@ def build_feed(cfg: Config, manifest: Optional[str],
     seed = cfg.RNG_SEED if seed is None else seed
     augment = bool(cfg.TRAIN.FLAG) if augment is None else augment
     image_root = image_root or cfg.DATA_DIR
+    n_global = len(records)
+    rank, world = sharding.rank_and_world()
+    if world > 1:
+        records = sharding.process_local_records(records)
+        _, local_b = sharding.process_local_batch_slice(cfg.TRAIN.BATCH_SIZE)
+        cfg = cfg.merged({"TRAIN": {"BATCH_SIZE": local_b}})
+    ids = dict(id_offset=rank, id_stride=world)
     if grain:
         from objgan_tpu_torch.data.grain_feed import grain_feed
 
         return grain_feed(cfg.replace(DATA_DIR=image_root), records, vocab,
                           seed=seed, with_images=with_images,
                           with_masks=with_masks, augment=augment,
-                          wire=wire), len(records), vocab
+                          wire=wire, **ids), n_global, vocab
     feed = CocoFeed(cfg, records, vocab, seed=seed, with_images=with_images,
                     with_masks=with_masks, augment=augment,
-                    image_root=image_root, wire=wire)
-    return iter(feed), len(records), vocab
+                    image_root=image_root, wire=wire, **ids)
+    return iter(feed), n_global, vocab

@@ -8,8 +8,9 @@ shapes, dtypes (int32 ids and lengths, fp32 the rest) and value ranges.
   [0, 0.7) and w, h in [0.1, 0.3);
 * shapes (B, O, S, S): a disc of radius 0.7 around a centre within 0.3 of
   the object frame's middle;
-* class_ids (B,) = arange(B), unique in the batch (DAMSM's class mask
-  drops pairs with equal ids);
+* class_ids (B,) = id_offset + arange(B), unique in the batch (DAMSM's
+  class mask drops pairs with equal ids); a rank passes the start of its
+  slice of the global batch, so the ids stay unique across ranks;
 * images: one (B, s, s, 3) tensor in [-1, 1) per pyramid scale, left out
   with ``with_images=False`` (Stages A and B read none).
 """
@@ -25,7 +26,8 @@ from objgan_tpu_torch.core.config import Config
 
 def synthetic_batch(cfg: Config, generator: torch.Generator,
                     batch: Optional[int] = None,
-                    with_images: bool = True) -> Dict[str, object]:
+                    with_images: bool = True,
+                    id_offset: int = 0) -> Dict[str, object]:
     b = batch or cfg.TRAIN.BATCH_SIZE
     t = cfg.TEXT.WORDS_NUM
     o = cfg.OBJ.MAX_OBJECTS
@@ -59,7 +61,8 @@ def synthetic_batch(cfg: Config, generator: torch.Generator,
     out = {
         "captions": captions,
         "cap_lens": cap_lens,
-        "class_ids": torch.arange(b, dtype=torch.int32, device=dev),
+        "class_ids": torch.arange(id_offset, id_offset + b,
+                                  dtype=torch.int32, device=dev),
         "labels": labels,
         "boxes": boxes,
         "shapes": shapes,

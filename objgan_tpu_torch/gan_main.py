@@ -11,7 +11,11 @@ under ``OUTPUT_DIR``). Both load the DAMSM encoders of ``TRAIN.NET_E``
 they run on synthetic COCO-shaped batches. ``--wire`` feeds uint8 wire
 batches that the trainer expands on the device, ``--grain`` feeds from
 ``WORKERS`` worker processes. Runs on the CUDA device unless ``--device``
-says otherwise.
+says otherwise. Training runs data-parallel under torchrun, each rank on
+``cuda:LOCAL_RANK`` (``parallel/sharding.py``):
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m objgan_tpu_torch.gan_main --cfg cfg/coco_objgan.yml ...
 """
 
 from __future__ import annotations
@@ -56,10 +60,15 @@ def main(argv=None) -> None:
     from objgan_tpu_torch import cli
     from objgan_tpu_torch.core.config import Config, cfg_from_file
     from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.parallel.sharding import (
+        maybe_initialize_distributed, shutdown)
 
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
     if args.data_dir:
         cfg = cfg.replace(DATA_DIR=args.data_dir)
+    if cfg.TRAIN.FLAG:
+        # under torchrun: join the group before the feed takes its part
+        maybe_initialize_distributed(args.device)
     feed, n_records, vocab = build_feed(cfg, args.manifest,
                                         args.captions_pickle, wire=args.wire,
                                         grain=args.grain)
@@ -69,6 +78,7 @@ def main(argv=None) -> None:
         cli.train_gan(cfg, feed, max_steps=max_steps, device=args.device,
                       log_every=args.log_every,
                       ixtoword=vocab.ixtoword if vocab else None)
+        shutdown()
     else:
         cli.sample_gan(cfg, feed, num_batches=args.num_batches,
                        device=args.device)

@@ -13,6 +13,14 @@ One batched fp32 computation with validity masks:
 
 Pairs whose class ids collide are excluded as negatives, except the
 diagonal.
+
+``words_loss`` and ``sent_loss`` score the batch they are given.
+``damsm_loss``, the training loss of DAMSM pretraining and of the Stage-C
+generator, scores the global batch under data parallelism: it gathers
+every rank's features, lengths and class ids with
+``parallel.sharding.all_gather_with_grad``, so each rank computes the
+global loss and the gradient reaches every rank's features
+(``parallel/sharding.py`` states the convention).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from objgan_tpu_torch.ops.attention import damsm_attention
+from objgan_tpu_torch.parallel.sharding import all_gather_with_grad
 
 _NEG_INF = -1e9
 
@@ -93,7 +102,13 @@ def sent_loss(global_feats: torch.Tensor, sent_embs: torch.Tensor,
 
 def damsm_loss(region_feats, global_feats, words_embs, sent_embs, cap_lens,
                class_ids, smooth):
-    """Total DAMSM loss; ``smooth`` is ``cfg.TRAIN.SMOOTH``."""
+    """Total DAMSM loss of the global batch and its four terms; ``smooth``
+    is ``cfg.TRAIN.SMOOTH``."""
+    region_feats, global_feats, words_embs, sent_embs, cap_lens = (
+        all_gather_with_grad(x) for x in (region_feats, global_feats,
+                                          words_embs, sent_embs, cap_lens))
+    if class_ids is not None:
+        class_ids = all_gather_with_grad(class_ids)
     w0, w1, _ = words_loss(region_feats, words_embs, cap_lens, class_ids,
                            smooth.GAMMA1, smooth.GAMMA2, smooth.GAMMA3)
     s0, s1 = sent_loss(global_feats, sent_embs, class_ids, smooth.GAMMA3)

@@ -10,6 +10,11 @@ mismatched caption) -> 0, plus unconditional real/fake terms, weighted
 adds per-object real/fake and class terms, masked by object validity.
 Stage B's shape D scores each object real or fake; its G adds feature
 matching on the D's trunk features and the masks' reconstruction BCE.
+
+Under data parallelism each loss is a rank's share of the global batch's
+loss (``parallel/sharding.py``): a masked mean divides by the count of the
+global batch, the mismatched captions roll the global batch, and the plain
+means over a rank's rows are shares as they stand.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from objgan_tpu_torch.parallel import sharding
 
 
 def _bce(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -39,8 +46,10 @@ def _class_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` where ``mask`` is set, over the global batch (this
+    rank's share of it under data parallelism)."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return sharding.masked_mean_share((x * mask).sum(), mask.sum())
 
 
 def discriminator_loss(out_real: Dict[str, torch.Tensor],
@@ -90,13 +99,17 @@ def object_g_loss(out_fake: Dict[str, torch.Tensor], labels: torch.Tensor,
 
 
 def roll_sent(sent_emb: torch.Tensor) -> torch.Tensor:
-    """Mismatched captions: the batch rolled by one. A batch of 1 would pair
-    each image with its own caption as the mismatch, so it raises."""
-    if sent_emb.shape[0] < 2:
+    """Mismatched captions: the global batch rolled by one, this rank's rows
+    of it (a rank's first row takes the previous rank's last caption). A
+    global batch of 1 would pair each image with its own caption as the
+    mismatch, so it raises. ``sent_emb`` is a constant of the step: the
+    roll passes no gradient to other ranks."""
+    everyone = sharding.all_gather_with_grad(sent_emb)
+    if everyone.shape[0] < 2:
         raise ValueError(
             "wrong-pair loss needs batch size >= 2 (a batch of 1 would pair "
             "each image with its own caption as the 'mismatch')")
-    return torch.roll(sent_emb, shifts=1, dims=0)
+    return sharding.local_rows(torch.roll(everyone, shifts=1, dims=0))
 
 
 # -- Stage B (shape GAN) -----------------------------------------------------

@@ -30,6 +30,7 @@ from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import Dense, Embed
 from objgan_tpu_torch.ops import gmm
 from objgan_tpu_torch.ops.lstm import BiLSTM, Carry, LSTMCell
+from objgan_tpu_torch.parallel.sharding import masked_mean_share
 
 STOP = 0  # class id 0 == STOP / padding
 
@@ -310,7 +311,9 @@ def box_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
              num_components: int, gmm_mode: str = "diag"
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Label cross-entropy over the steps up to and with the STOP step,
-    plus the GMM NLL of the ground-truth boxes masked by ``obj_valid``.
+    plus the GMM NLL of the ground-truth boxes masked by ``obj_valid``;
+    both are means over the valid steps of the global batch (a rank's share
+    under data parallelism, ``parallel/sharding.py``).
 
     ``obj_valid`` must be a prefix mask (valid objects first, as the data
     layer orders them): the STOP target sits at step ``sum(obj_valid)``."""
@@ -322,8 +325,7 @@ def box_loss(outputs: Dict[str, torch.Tensor], labels: torch.Tensor,
     step_valid = (steps <= n_obj[:, None]).float()  # with the STOP step
     ce = F.cross_entropy(outputs["label_logits"].reshape(b * (o + 1), -1),
                          tgt.reshape(-1), reduction="none").reshape(b, o + 1)
-    label_loss = (ce * step_valid).sum() / torch.clamp(step_valid.sum(),
-                                                       min=1.0)
+    label_loss = masked_mean_share((ce * step_valid).sum(), step_valid.sum())
     box_nll = gmm.nll(outputs["box_params"], boxes, num_components,
                       obj_valid.float(), mode=gmm_mode)
     return label_loss + box_nll, {"label_loss": label_loss,

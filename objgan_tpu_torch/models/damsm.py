@@ -25,6 +25,7 @@ from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import Conv, Dense, Embed
 from objgan_tpu_torch.models.common import gn
 from objgan_tpu_torch.ops.lstm import BiLSTM
+from objgan_tpu_torch.parallel.sharding import global_batch, local_rows
 
 
 class RNNEncoder(nn.Module):
@@ -52,11 +53,13 @@ class RNNEncoder(nn.Module):
                   generator: torch.Generator) -> torch.Tensor:
         """A dropout keep mask for ``captions`` (B, T), drawn on the
         generator's device: each value kept with probability
-        1 - drop_prob."""
+        1 - drop_prob. Under data parallelism it is drawn for the global
+        batch and this rank's rows are returned, so a row's mask does not
+        depend on the world size."""
         b, t = captions.shape
-        u = torch.rand(b, t, self.embedding.weight.shape[1],
+        u = torch.rand(global_batch(b), t, self.embedding.weight.shape[1],
                        generator=generator, device=generator.device)
-        return u < 1.0 - self.drop_prob
+        return local_rows(u < 1.0 - self.drop_prob)
 
 
 def build_text_encoder(cfg: Config) -> RNNEncoder:

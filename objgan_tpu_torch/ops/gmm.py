@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from objgan_tpu_torch.parallel.sharding import masked_mean_share
+
 BOX_DIM = 4
 _LOG_2PI = 1.8378770664093453  # log(2 pi)
 _PAIRS = ((0, 1), (2, 3))  # correlated (x, y) and (w, h) blocks
@@ -97,12 +99,13 @@ def nll(params: torch.Tensor, box: torch.Tensor, num_components: int,
         valid: Optional[torch.Tensor] = None,
         mode: str = "diag") -> torch.Tensor:
     """Mean negative log-likelihood, over the steps where ``valid`` is set
-    when it is given."""
+    when it is given: then over the global batch (a rank's share under data
+    parallelism, ``parallel/sharding.py``)."""
     ll = log_prob(params, box, num_components, mode=mode)
     if valid is None:
         return -ll.mean()
     valid = valid.to(ll.dtype)
-    return -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    return -masked_mean_share((ll * valid).sum(), valid.sum())
 
 
 def mean(params: torch.Tensor, num_components: int,

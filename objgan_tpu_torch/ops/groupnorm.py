@@ -290,12 +290,14 @@ def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_plan(lib, idx, code, plan, use_glu)
     y = torch.empty((b, n, c // 2 if use_glu else c), dtype=x3.dtype,
                     device=x3.device)
-    err = lib.objgan_group_norm(
-        x3.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        code, plan.vec, b, n, c, num_groups, plan.cluster, plan.rows,
-        plan.res_rows, plan.ring_rows, int(plan.bulk), plan.smem, float(eps),
-        int(use_glu),
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensor's
+    with torch.cuda.device(x3.device):
+        err = lib.objgan_group_norm(
+            x3.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            code, plan.vec, b, n, c, num_groups, plan.cluster, plan.rows,
+            plan.res_rows, plan.ring_rows, int(plan.bulk), plan.smem,
+            float(eps), int(use_glu),
+            torch.cuda.current_stream(x3.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: cudaError {err}")
     launches += 1

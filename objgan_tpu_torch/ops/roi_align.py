@@ -339,11 +339,14 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     plan = fwd_plan(b, h, w, c, o, out_size, sampling_ratio,
                     features.element_size(),
                     features.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _entry("objgan_roi_align_fwd", features.device)(
-        features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[features.dtype], b, h, w, c, o, out_size, sampling_ratio,
-        plan.vec, plan.tile, plan.rows, plan.chunk, plan.smem,
-        torch.cuda.current_stream(features.device).cuda_stream)
+    launch = _entry("objgan_roi_align_fwd", features.device)
+    # the kernel launches on the current device: make it the tensor's
+    with torch.cuda.device(features.device):
+        err = launch(
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[features.dtype], b, h, w, c, o, out_size,
+            sampling_ratio, plan.vec, plan.tile, plan.rows, plan.chunk,
+            plan.smem, torch.cuda.current_stream(features.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align forward kernel launch failed: "
                            f"cudaError {err} ({plan})")
@@ -374,11 +377,13 @@ def roi_align_backward_cuda(boxes: torch.Tensor, g: torch.Tensor, f_shape,
     plan = bwd_plan(b, h, w, c, o, out_size, sampling_ratio, g.element_size(),
                     _sm_count(g.device),
                     g.data_ptr() % 16 == 0 and df.data_ptr() % 16 == 0)
-    err = _entry("objgan_roi_align_bwd", g.device)(
-        g.data_ptr(), boxes.data_ptr(), df.data_ptr(), _DTYPE_CODE[g.dtype],
-        b, h, w, c, o, out_size, sampling_ratio, plan.vec, plan.tile,
-        plan.band, plan.cols, plan.group, plan.smem,
-        torch.cuda.current_stream(g.device).cuda_stream)
+    launch = _entry("objgan_roi_align_bwd", g.device)
+    with torch.cuda.device(g.device):
+        err = launch(
+            g.data_ptr(), boxes.data_ptr(), df.data_ptr(),
+            _DTYPE_CODE[g.dtype], b, h, w, c, o, out_size, sampling_ratio,
+            plan.vec, plan.tile, plan.band, plan.cols, plan.group, plan.smem,
+            torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"roi_align backward kernel launch failed: "
                            f"cudaError {err} ({plan})")

@@ -10,7 +10,9 @@ metrics CSV and attention-grid snapshots under
 ``OUTPUT_DIR/<CONFIG_NAME>_damsm``, and resumes from its newest checkpoint
 when run again. Stage C loads the encoders through ``TRAIN.NET_E``.
 ``--wire`` and ``--grain`` choose the feed as ``gan_main``'s do. Runs on
-the CUDA device unless ``--device`` says otherwise.
+the CUDA device unless ``--device`` says otherwise; data-parallel under
+``python -m torch.distributed.run --nproc_per_node=N -m
+objgan_tpu_torch.pretrain_damsm ...``, each rank on ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -49,10 +51,14 @@ def main(argv=None) -> None:
     from objgan_tpu_torch import cli
     from objgan_tpu_torch.core.config import Config, cfg_from_file
     from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.parallel.sharding import (
+        maybe_initialize_distributed, shutdown)
 
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
     if args.data_dir:
         cfg = cfg.replace(DATA_DIR=args.data_dir)
+    # under torchrun: join the group before the feed takes its part
+    maybe_initialize_distributed(args.device)
     # DAMSM reads images, captions and class ids: no per-object masks
     feed, n_records, vocab = build_feed(
         cfg, args.manifest, args.captions_pickle, with_masks=False,
@@ -61,6 +67,7 @@ def main(argv=None) -> None:
     cli.pretrain_damsm(cfg, feed, max_steps=max_steps, device=args.device,
                        log_every=args.log_every,
                        ixtoword=vocab.ixtoword if vocab else None)
+    shutdown()
 
 
 if __name__ == "__main__":

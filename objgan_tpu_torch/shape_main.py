@@ -13,7 +13,9 @@ and instance masks (no images are read; synthetic batches without
 With ``--eval``, the held-out mask IoU, pixel accuracy and area ratio of
 the newest checkpoint, on classic batches whatever ``--wire`` says.
 ``--wire`` trains on uint8 wire batches (masks 255-quantised). Runs on
-the CUDA device unless ``--device`` says otherwise.
+the CUDA device unless ``--device`` says otherwise; training runs
+data-parallel under ``python -m torch.distributed.run --nproc_per_node=N
+-m objgan_tpu_torch.shape_main ...``, each rank on ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def main(argv=None) -> None:
     from objgan_tpu_torch import cli
     from objgan_tpu_torch.core.config import Config, cfg_from_file
     from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.parallel.sharding import (
+        maybe_initialize_distributed, shutdown)
 
     cfg = cfg_from_file(args.cfg_file) if args.cfg_file else Config()
     if args.data_dir:
@@ -61,12 +65,15 @@ def main(argv=None) -> None:
         cli.eval_shape(cfg, feed, num_batches=args.num_batches,
                        device=args.device)
         return
+    # under torchrun: join the group before the feed takes its part
+    maybe_initialize_distributed(args.device)
     # Stage B reads layouts and instance masks, never photos
     feed, n_records, _ = build_feed(cfg, args.manifest, args.captions_pickle,
                                     with_images=False, wire=args.wire)
     cfg, max_steps = cli.apply_epoch_schedule(cfg, n_records, args.max_steps)
     cli.train_shape(cfg, feed, max_steps=max_steps, device=args.device,
                     log_every=args.log_every)
+    shutdown()
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import torch
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.models.box_generator import BoxGenerator, box_loss
+from objgan_tpu_torch.parallel.sharding import global_batch, local_rows
 from objgan_tpu_torch.train.common import Trainer, adam, clip_by_global_norm_
 
 
@@ -46,12 +47,15 @@ def box_noise(cfg: Config, batch: int, generator: torch.Generator,
 def ss_flips(cfg: Config, objects: int, batch: int,
              generator: torch.Generator, device) -> Optional[torch.Tensor]:
     """Scheduled sampling's flips (O + 1, B), each set with probability
-    ``BOX.SCHEDULED_SAMPLING_PROB``; None when it is 0."""
+    ``BOX.SCHEDULED_SAMPLING_PROB``; None when it is 0. Under data
+    parallelism drawn for the global batch, ``batch`` this rank's
+    columns."""
     p = cfg.BOX.SCHEDULED_SAMPLING_PROB
     if p <= 0.0:
         return None
-    return torch.rand((objects + 1, batch), generator=generator,
-                      device=device) < p
+    return local_rows(torch.rand((objects + 1, global_batch(batch)),
+                                 generator=generator, device=device) < p,
+                      dim=1)
 
 
 def sample(model: BoxGenerator, captions: torch.Tensor,

@@ -6,6 +6,14 @@ random streams.
 buffers, every optimiser's Adam state under ``optim.<parameter
 name>.<step | exp_avg | exp_avg_sq>`` and the trainer's ``step``: one flat
 dict of tensors, which ``core/checkpoint.py`` saves and restores.
+
+Under data parallelism (``parallel/sharding.py``) ``grads_of`` returns the
+rank's own gradients and the metrics averaged over the ranks, and
+``apply_grads`` averages the gradients over the ranks before the clip, so
+a global-norm clip sees the gradient of the global batch and every rank
+takes the same Adam step. The reduction is explicit, not
+``DistributedDataParallel``'s: ``torch.autograd.grad`` bypasses its
+reducer.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from objgan_tpu_torch.parallel import sharding
+
 _ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
 
 
@@ -25,14 +35,16 @@ def adam(params, lr: float, b1: float = 0.5) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(b1, 0.999), eps=1e-8)
 
 
-def step_generator(seed: int, step: int, device,
-                   stream: int = 0) -> torch.Generator:
+def step_generator(seed: int, step: int, device, stream: int = 0,
+                   rank: int = 0) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, step, stream): the
     port's counterpart of ``jax.random.fold_in(PRNGKey(seed), step)``. A
     step's draws depend on its number only, so a resumed run draws what an
-    unbroken one would."""
-    state = np.random.SeedSequence([seed, step, stream]).generate_state(
-        1, np.uint64)
+    unbroken one would. A draw that differs between the ranks (each rank's
+    synthetic batch) adds the rank, as JAX folds in the process index: rank
+    0 draws what one process draws."""
+    entropy = [seed, step, stream] + ([rank] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]) >> 1)
 
 
@@ -73,15 +85,16 @@ class Trainer(nn.Module):
                  metrics: Dict[str, torch.Tensor]
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """Each (loss, {name: parameter}) pair's gradients by name (zeros
-        where the loss does not reach a parameter), and ``metrics``
-        detached."""
+        where the loss does not reach a parameter; this rank's), and
+        ``metrics`` detached and averaged over the ranks."""
         grads = {}
         for loss, params in losses:
             got = torch.autograd.grad(loss, list(params.values()),
                                       allow_unused=True)
             for (name, p), g in zip(params.items(), got):
                 grads[name] = torch.zeros_like(p) if g is None else g
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        return grads, sharding.all_reduce_metrics(
+            {k: v.detach() for k, v in metrics.items()})
 
     def clip_(self, grads: Dict[str, torch.Tensor]) -> None:
         """Clips ``grads`` in place before ``apply_grads``' Adam steps;
@@ -89,8 +102,9 @@ class Trainer(nn.Module):
 
     @torch.no_grad()
     def apply_grads(self, grads: Dict[str, torch.Tensor]) -> None:
-        """``clip_``, then one Adam step of every optimiser on ``grads``
-        (by parameter name)."""
+        """The average of ``grads`` (by parameter name) over the ranks,
+        ``clip_``, then one Adam step of every optimiser."""
+        sharding.all_reduce_grads_(grads)
         self.clip_(grads)
         for name, p in self.named_parameters():
             if name in grads:

@@ -14,7 +14,12 @@ the EMA copy of G moves with decay 0.999.
 The DAMSM text and image encoders and the label table are frozen: the
 encoders run without dropout and without parameter gradients (the image
 encoder still passes the gradient on to the fake images); ``init_state``
-takes pretrained encoder weights. With ``GAN.REMAT: stages`` every D and
+takes pretrained encoder weights. Under data parallelism each rank runs
+the step on its rows of the global batch, and the losses are its shares of
+the global batch's (``parallel/sharding.py``): the mismatched captions roll
+the global batch, the object terms divide by its valid objects, and the
+DAMSM term scores the gathered global batch; the EMA moves identically on
+every rank. With ``GAN.REMAT: stages`` every D and
 image-encoder forward runs under ``torch.utils.checkpoint``, as do G's
 attention stages. ``state_dict`` covers every network, the EMA generator,
 the label table, every optimiser and the step (``train/common.py``).
@@ -33,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from objgan_tpu_torch.core.config import Config, validate_config
 from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.data.wire import from_wire
-from objgan_tpu_torch.losses.damsm_loss import sent_loss, words_loss
+from objgan_tpu_torch.losses.damsm_loss import damsm_loss
 from objgan_tpu_torch.losses.gan_loss import (discriminator_loss,
                                               generator_adv_loss,
                                               object_d_loss, object_g_loss,
@@ -44,6 +49,7 @@ from objgan_tpu_torch.models.discriminator import (ObjectDNet,
                                                    build_discriminators)
 from objgan_tpu_torch.models.generator import GNet, kl_loss
 from objgan_tpu_torch.ops import rasterize
+from objgan_tpu_torch.parallel.sharding import global_batch, local_rows
 from objgan_tpu_torch.train.common import Trainer, adam
 
 
@@ -95,12 +101,15 @@ def sample(state, batch: Dict[str, torch.Tensor], z: torch.Tensor,
 def train_noise(cfg: Config, batch: int, generator: torch.Generator,
                 device) -> Dict[str, torch.Tensor]:
     """The train step's noise: z (B, Z_DIM) and the CA-net ca_eps
-    (B, CONDITION_DIM), standard normal fp32."""
+    (B, CONDITION_DIM), standard normal fp32. Under data parallelism each
+    is drawn for the global batch and ``batch`` is this rank's rows of it
+    (``parallel.sharding.local_rows``)."""
+    rows = global_batch(batch)
     return {
-        "z": torch.randn(batch, cfg.GAN.Z_DIM, generator=generator,
-                         device=device),
-        "ca_eps": torch.randn(batch, cfg.GAN.CONDITION_DIM,
-                              generator=generator, device=device),
+        "z": local_rows(torch.randn(rows, cfg.GAN.Z_DIM, generator=generator,
+                                    device=device)),
+        "ca_eps": local_rows(torch.randn(rows, cfg.GAN.CONDITION_DIM,
+                                         generator=generator, device=device)),
     }
 
 
@@ -267,11 +276,9 @@ class GanTrainer(Trainer):
         # DAMSM on the finest fake, through the frozen image encoder
         regions, global_f = self._ck(self.img_enc, fakes[-1])
         sm = cfg.TRAIN.SMOOTH
-        class_ids = batch["class_ids"]
-        w0, w1, _ = words_loss(regions, words, lens, class_ids, sm.GAMMA1,
-                               sm.GAMMA2, sm.GAMMA3)
-        s0, s1 = sent_loss(global_f, sent, class_ids, sm.GAMMA3)
-        damsm = sm.LAMBDA * (w0 + w1 + s0 + s1)
+        matching, _ = damsm_loss(regions, global_f, words, sent, lens,
+                                 batch["class_ids"], sm)
+        damsm = sm.LAMBDA * matching
         kl = kl_loss(g_out["mu"], g_out["logvar"])
         g_total = g_total + damsm + kl
         metrics.update(g_loss=g_total, d_loss=d_total, damsm=damsm, kl=kl)

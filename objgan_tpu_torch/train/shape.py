@@ -37,6 +37,8 @@ from objgan_tpu_torch.models.shape_generator import (ShapeDiscriminator,
                                                      ShapeGenerator)
 from objgan_tpu_torch.models.vgg import (VGG16, load_torchvision_vgg16,
                                          vgg_perceptual_loss)
+from objgan_tpu_torch.parallel.sharding import (global_batch, local_rows,
+                                                masked_mean_share)
 from objgan_tpu_torch.train.common import Trainer, adam
 
 
@@ -54,9 +56,12 @@ class ShapeState(nn.Module):
 
 def shape_noise(cfg: Config, batch: int, generator: torch.Generator,
                 device) -> torch.Tensor:
-    """G's noise z (B, O, 1, 1, SHAPE.GF_DIM), standard normal fp32."""
-    return torch.randn((batch, cfg.OBJ.MAX_OBJECTS, 1, 1, cfg.SHAPE.GF_DIM),
-                       generator=generator, device=device)
+    """G's noise z (B, O, 1, 1, SHAPE.GF_DIM), standard normal fp32; under
+    data parallelism drawn for the global batch, ``batch`` this rank's
+    rows."""
+    return local_rows(torch.randn(
+        (global_batch(batch), cfg.OBJ.MAX_OBJECTS, 1, 1, cfg.SHAPE.GF_DIM),
+        generator=generator, device=device))
 
 
 def sample(state, boxes: torch.Tensor, labels: torch.Tensor,
@@ -148,7 +153,7 @@ class ShapeTrainer(Trainer):
             per = vgg_perceptual_loss(self.vgg, fake.reshape(b * o, s, s),
                                       shapes.reshape(b * o, s, s))
             v = valid.reshape(b * o).float()
-            perceptual = (per * v).sum() / v.sum().clamp(min=1.0)
+            perceptual = masked_mean_share((per * v).sum(), v.sum())
             g_l = g_l + self.cfg.SHAPE.LAMBDA_PERCEPTUAL * perceptual
             aux["shape_perceptual"] = perceptual
         aux.update(shape_d=d_l, shape_g=g_l)

@@ -425,3 +425,30 @@ def test_roi_align_autograd_on_card_matches_twin(dev):
     (y, df), (y_want, df_want) = outs
     assert float((y - y_want).abs().max()) <= 1e-4
     assert float((df - df_want).abs().max()) <= 1e-4
+
+
+def test_kernels_launch_on_the_tensors_card(dev):
+    """K1, K2 and K3 launch on the card that holds their tensors, whichever
+    card is current (a data-parallel rank's tensors on ``cuda:r``): on
+    every card, with the next card current. On one card the current card
+    is the tensors' own; fp32 atol 1e-4 against the twins."""
+    from objgan_tpu_torch.ops import roi_align as ra
+
+    count = torch.cuda.device_count()
+    for idx in range(count):
+        card = torch.device("cuda", idx)
+        x, scale, bias = _inputs(2, 64, 32, torch.float32, card)
+        f, boxes = _roi_inputs(2, 8, 8, 32, 3, torch.float32, card)
+        g = torch.randn(2, 3, 4, 4, 32, device=card)
+        with torch.cuda.device((idx + 1) % count):
+            y = groupnorm.group_norm_cuda(x, scale, bias, 8, 1e-6, False)
+            r = ra.roi_align_cuda(f, boxes, 4, 2)
+            df = ra.roi_align_backward_cuda(boxes, g, f.shape, 4, 2)
+        torch.cuda.synchronize(card)
+        want = groupnorm.group_norm_reference(x, scale, bias, 8, 1e-6, False)
+        assert y.device == card and float((y - want).abs().max()) <= 1e-4
+        assert float((r - ra.roi_align_reference(f, boxes, 4, 2)).abs()
+                     .max()) <= 1e-4
+        dfw = ra.roi_align_backward_reference(boxes, g, f.shape,
+                                              torch.float32, 4, 2)
+        assert float((df - dfw).abs().max()) <= 1e-4

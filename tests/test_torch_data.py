@@ -116,6 +116,27 @@ def test_port_package_imports_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+@pytest.mark.parametrize("module", ["objgan_tpu_torch.parallel",
+                                    "objgan_tpu_torch.parallel.sharding",
+                                    "objgan_tpu_torch.parallel.dryrun"])
+def test_parallel_modules_import_no_jax(module):
+    """The data-parallel modules, each alone in a fresh process (the dry
+    run's ``--help`` parsed as well)."""
+    code = ("import importlib, runpy, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "if sys.argv[1].endswith('dryrun'):\n"
+            "    sys.argv = ['dryrun', '--help']\n"
+            "    try:\n"
+            f"        runpy.run_module({module!r}, run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0, e.code\n" + FORBIDDEN_MODULES)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, module], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_guard_catches_the_jax_package():
     """The guard itself: a process that imports a JAX-free module of the
     JAX package fails it."""

@@ -425,6 +425,36 @@ def test_gan_main_trains_without_jax(tmp_path):
     assert "UNTRAINED" in proc.stderr
 
 
+def test_gan_main_under_torchrun_without_jax(tmp_path):
+    """``gan_main`` launched by torchrun (one gloo rank on the CPU): it
+    joins the group, trains, writes its checkpoint, leaves the group, and
+    loads neither JAX nor the JAX package."""
+    yml = _tiny_yml(tmp_path / "tiny.yml", True)
+    code = (
+        "import runpy, sys\n"
+        "import torch.distributed as dist\n"
+        "joined, init = [], dist.init_process_group\n"
+        "def spy(backend, **kw):\n"
+        "    joined.append(backend)\n"
+        "    init(backend, **kw)\n"
+        "dist.init_process_group = spy\n"
+        "sys.argv = ['gan_main', '--cfg', sys.argv[1], '--max_steps', '2',"
+        " '--log_every', '1', '--device', 'cpu']\n"
+        "runpy.run_module('objgan_tpu_torch.gan_main', run_name='__main__')\n"
+        "assert joined == ['gloo'] and not dist.is_initialized(), joined\n"
+        + FORBIDDEN_MODULES)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "--no-python", sys.executable, "-c", code,
+         str(yml)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert [ln.split("]")[0] for ln in proc.stdout.splitlines()
+            if ln.startswith("[step")] == ["[step 1", "[step 2"]
+    assert os.listdir(tmp_path / "out" / "objgan_gan" / "ckpt") == ["2"]
+
+
 def test_gan_main_samples_when_not_training(tmp_path, capsys):
     from objgan_tpu_torch import gan_main
 
