@@ -164,7 +164,35 @@ and strict); and checks every hand-written kernel on them:
                 ``coco_objgan`` width (finite, the ranks' parameters
                 bitwise equal, K1-K3 at phase 6's counts), ms per step at
                 world sizes 1 and 2 side by side;
-27. processes   no process that the smoke started is left: the worker
+27. native      the feed's C++ polygon fill (``native/rasterize.cc``,
+                built by g++) against its numpy plain version, bitwise, on
+                every polygon of the manifest, both timed; a Stage-B batch
+                (16 x 10 objects, ``shape_coco``) and an eval batch (16,
+                ``eval_coco``) fed with each fill: bitwise equal, host ms
+                per batch of each;
+28. lineage     random lineage ``.pth`` state dicts at full width through
+                the port's tools: ``convert_damsm`` of a text_encoder.pth
+                and an inception image_encoder.pth (``damsm_coco``) into
+                ``cli.train_gan`` at ``coco_objgan`` width with
+                ``TRAIN.NET_E`` (2 steps: the encoders equal the converted
+                ones, K1 once per GroupNorm call, K2 and K3 3 times a
+                step); ``convert_gan`` of a netG and a netD per scale into
+                ``cli.sample_gan`` with ``TRAIN.NET_G`` (one batch);
+                ``export_damsm`` and ``convert_damsm`` of the export, the
+                same encoders bitwise;
+29. breakdown   ``utils/breakdown.py`` with ``analyze=True``: Stage-C
+                sampling at ``eval_coco`` width on a manifest batch and the
+                train step at ``coco_objgan`` width, every key printed;
+                each stage once first: finite, K1 once per GroupNorm call
+                (and so in exactly the stages that normalise), K2 3 times
+                in each train part, K3 in both gradients;
+30. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
+                subprocess: exit 0, a PASS line for each of K2 + K3 (fp32,
+                bf16) and K1 (fp32, bf16, each with and without GLU); again
+                under ``compute-sanitizer --tool memcheck`` at ``--c 64
+                --o 4``, every tensor its own allocation, 0 errors, where
+                the toolkit has the sanitizer (else the phase says so);
+31. processes   no process that the smoke started is left: the worker
                 feeds' fork server stopped with the last feed, and the
                 resource tracker it started stops here (the ranks and
                 torchrun's agent of phase 26 included).
@@ -184,6 +212,7 @@ summary JSON, the card's ``name, power.limit`` from nvidia-smi, and
 """
 
 import concurrent.futures
+import contextlib
 import copy
 import csv
 import json
@@ -794,33 +823,6 @@ def phase_train(cfg):
                      "k1_per_step": k1 // TRAIN_STEPS, "rows": rows}
 
 
-def _device_profile(fn):
-    """(wall ms, device-busy ms, [(start us, end us, kernel name)]) of one
-    call of ``fn`` under torch.profiler; busy is the union of the device
-    intervals."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1000.0 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and "#" not in e.name)
-    check(bool(spans), "the profiler saw no device activity")
-    busy_us, end = 0.0, float("-inf")
-    for a, b, _ in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return wall_ms, busy_us / 1000.0, spans
-
-
 def phase_train_profile(cfg, trainer):
     """One steady train step under torch.profiler: how busy the device is
     and which kernels take its time (the profiler's own overhead is in the
@@ -835,6 +837,7 @@ def phase_train_profile(cfg, trainer):
     from objgan_tpu_torch.data.synthetic import synthetic_batch
     from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.train.gan import train_noise
+    from objgan_tpu_torch.utils.profiling import device_profile
 
     gen = torch.Generator("cuda").manual_seed(9)
     batch = synthetic_batch(cfg, gen)
@@ -843,7 +846,7 @@ def phase_train_profile(cfg, trainer):
     def step():
         trainer.train_step(batch, noise["z"], noise["ca_eps"])
 
-    wall_ms, busy_ms, spans = _device_profile(step)
+    wall_ms, busy_ms, spans = device_profile(step)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     groups = collections.defaultdict(float)
     roi = {"K2": [0.0, 0], "K3": [0.0, 0]}
@@ -894,26 +897,12 @@ def phase_train_profile(cfg, trainer):
             gn_bwd(*args, **kwargs)
 
     replay()  # warm-up
-    r_wall, r_busy, r_spans = _device_profile(replay)
+    r_wall, r_busy, r_spans = device_profile(replay)
     log("profile", f"GroupNorm backward (the twin's VJP, statistics "
         f"recomputed) of one step replayed alone: {len(calls)} calls, "
         f"{len(r_spans)} device activities, device busy {r_busy:.1f} ms "
         f"({r_busy / busy_ms:.2f} of the step's), wall {r_wall:.1f} ms "
         f"under the profiler")
-
-
-def _roi_work(boxes, f_shape, out_size, q):
-    """(touched feature pixels, multiply-add terms) of one ROI-align call:
-    the pixels some sample weighs, and sum over (b, o) of
-    nnz(A_y) * nnz(A_x), each term one multiply-add per channel."""
-    from objgan_tpu_torch.ops.roi_align import _pool_matrices
-
-    _, h, w, _ = f_shape
-    a_y, a_x = _pool_matrices(boxes, h, w, out_size, q)
-    rows, cols = (a_y != 0).any(-2), (a_x != 0).any(-2)  # (B, O, H|W)
-    touched = (rows[..., :, None] & cols[..., None, :]).any(1).sum()
-    terms = ((a_y != 0).sum((-1, -2)) * (a_x != 0).sum((-1, -2))).sum()
-    return int(touched), int(terms)
 
 
 def _roi_requested(name, boxes, f_shape, out_size, q, itemsize):
@@ -1073,7 +1062,7 @@ def phase_roi(fwd, bwd, pad):
             k_zero, _ = time_ms(lambda: kernel(zb), calls=10)
             p_ms, _ = time_ms(lambda: twin(boxes))
             itemsize = torch.tensor([], dtype=dt).element_size()
-            touched, terms = _roi_work(boxes, f_shape, r, q)
+            touched, terms = ra.roi_work(boxes, f_shape, r, q)
             c = f_shape[-1]
             b, o = boxes.shape[:2]
             out_bytes = b * o * r * r * c * itemsize
@@ -1207,6 +1196,7 @@ def phase_damsm():
     from objgan_tpu_torch.data.feed import build_feed
     from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.train.damsm import DamsmTrainer
+    from objgan_tpu_torch.utils.profiling import device_profile
 
     manifest = os.path.join(ROOT, MANIFEST)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_damsm_")
@@ -1311,7 +1301,7 @@ def phase_damsm():
         next(feed)
         feed_ms.append(1000.0 * (time.perf_counter() - t0))
     device_ms = statistics.median(step_ms[1:])
-    prof_wall, busy_ms, spans = _device_profile(
+    prof_wall, busy_ms, spans = device_profile(
         lambda: trainer.train_step(batch, keep))
     groups = collections.defaultdict(float)
     for a, b_, name in spans:
@@ -1507,6 +1497,7 @@ def phase_box(out_dir):
     from objgan_tpu_torch.core.config import Config
     from objgan_tpu_torch.data.feed import build_feed
     from objgan_tpu_torch.train.box import BoxTrainer
+    from objgan_tpu_torch.utils.profiling import device_profile
 
     cfg = Config().merged({"OUTPUT_DIR": out_dir, "CONFIG_NAME": "coco_objgan",
                            "DATA_DIR": os.path.join(ROOT, DATA_DIR)})
@@ -1554,7 +1545,7 @@ def phase_box(out_dir):
     log("box", f"checkpoint at step {steps} restored into a fresh trainer on "
         f"the card: all {n_tensors} tensors bitwise equal; one more step from "
         f"the live and the restored trainer: bitwise equal")
-    prof_wall, busy_ms, spans = _device_profile(
+    prof_wall, busy_ms, spans = device_profile(
         lambda: trainer.train_step(batch))
     log("box", f"one device step on a resident batch under torch.profiler: "
         f"wall {prof_wall:.1f} ms, device busy {busy_ms:.1f} ms (share "
@@ -1617,6 +1608,7 @@ def phase_shape(out_dir):
     from objgan_tpu_torch.models.common import FusedGroupNorm
     from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
     from objgan_tpu_torch.train.common import step_generator
+    from objgan_tpu_torch.utils.profiling import device_profile
 
     cfg = cfg_from_file(os.path.join(ROOT, "cfg", "shape_coco.yml")).merged(
         {"OUTPUT_DIR": out_dir, "CONFIG_NAME": "coco_objgan",
@@ -1681,7 +1673,7 @@ def phase_shape(out_dir):
         step_ms.append(1000.0 * (time.perf_counter() - t0))
     feed_ms = _feed_ms(feed)
     device_ms = statistics.median(step_ms[1:])
-    prof_wall, busy_ms, spans = _device_profile(
+    prof_wall, busy_ms, spans = device_profile(
         lambda: trainer.train_step(batch, z))
     groups = collections.defaultdict(float)
     for a, b_, name in spans:
@@ -2864,6 +2856,476 @@ def phase_ddp(train):
             "a": a_launch}
 
 
+@contextlib.contextmanager
+def _numpy_fill():
+    """The feed's polygon fill swapped for its numpy plain version."""
+    from objgan_tpu_torch import native
+    from objgan_tpu_torch.data import pipeline as pl
+
+    saved = native.rasterize_polygon
+    native.rasterize_polygon = pl._numpy_polygon_fill
+    try:
+        yield
+    finally:
+        native.rasterize_polygon = saved
+
+
+def phase_native():
+    """The native polygon fill (``native/rasterize.cc``, g++) against its
+    numpy plain version, bitwise, on every polygon of the manifest; then a
+    Stage-B batch and an eval batch fed with each fill."""
+    import numpy as np
+
+    from objgan_tpu_torch import native
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data import pipeline as pl
+    from objgan_tpu_torch.data.feed import build_feed
+
+    t0 = time.monotonic()
+    path = native.build()
+    log("native", f"{os.path.relpath(path, ROOT)} (g++ "
+        f"{' '.join(native.GXX_FLAGS)}) ready in "
+        f"{time.monotonic() - t0:.2f} s")
+    shape_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "shape_coco.yml")
+                              ).merged({"DATA_DIR": os.path.join(ROOT,
+                                                                 DATA_DIR)})
+    size = shape_cfg.OBJ.SHAPE_SIZE
+    records = pl.load_records_json(os.path.join(ROOT, MANIFEST))
+    pairs = [(np.asarray(p, np.float64), np.asarray(b, np.float32))
+             for r in records for p, b in zip(r.get("polygons") or [],
+                                              r["boxes"])]
+    check(len(pairs) > 1000, f"the manifest holds {len(pairs)} polygons")
+    fills = {}
+    for name, ctx in (("native", contextlib.nullcontext), ("numpy",
+                                                           _numpy_fill)):
+        with ctx():
+            t0 = time.perf_counter()
+            fills[name] = [pl.polygon_to_box_mask(p, b, size)
+                           for p, b in pairs]
+            fills[name + "_ms"] = 1000.0 * (time.perf_counter() - t0)
+    bad = sum(not np.array_equal(a, b)
+              for a, b in zip(fills["native"], fills["numpy"]))
+    check(bad == 0, f"native and numpy fills differ on {bad} of "
+          f"{len(pairs)} polygons")
+    log("native", f"{len(pairs)} manifest polygons at {size} px: native == "
+        f"numpy bitwise on every one; {fills['native_ms']:.1f} ms native, "
+        f"{fills['numpy_ms']:.1f} ms numpy (polygon_to_box_mask)")
+
+    eval_cfg = _eval_cfg(tempfile.gettempdir()).merged(
+        {"TRAIN": {"FLAG": False}})
+    out = {}
+    for stage, cfg, kw in (
+            (f"Stage-B batch ({shape_cfg.TRAIN.BATCH_SIZE} x "
+             f"{shape_cfg.OBJ.MAX_OBJECTS} objects, shape_coco)", shape_cfg,
+             {"with_images": False}),
+            (f"eval batch ({eval_cfg.TRAIN.BATCH_SIZE}, eval_coco)",
+             eval_cfg, {"augment": False})):
+        times, batches = {}, {}
+        for name, ctx in (("native", contextlib.nullcontext),
+                          ("numpy", _numpy_fill)):
+            with ctx():
+                feed, _, _ = build_feed(cfg, os.path.join(ROOT, MANIFEST),
+                                        **kw)
+                batches[name] = next(feed)  # the first: the feed's set-up
+                times[name] = _feed_ms(feed, n=3)
+        for key in batches["native"]:
+            a, b = batches["native"][key], batches["numpy"][key]
+            same = (all(np.array_equal(x, y) for x, y in zip(a, b))
+                    if isinstance(a, list) else np.array_equal(a, b))
+            check(same, f"{stage}: {key} differs between the fills")
+        check(batches["native"]["shapes"].any(), f"{stage}: empty masks")
+        out[stage] = {k: statistics.median(v) for k, v in times.items()}
+        log("native", f"{stage}: bitwise equal with either fill; host ms "
+            f"per batch native " + ", ".join(f"{t:.1f}" for t in
+                                            times["native"])
+            + " (median " f"{out[stage]['native']:.1f}), numpy "
+            + ", ".join(f"{t:.1f}" for t in times["numpy"])
+            + f" (median {out[stage]['numpy']:.1f})")
+    return out
+
+
+def _lineage_tensors(module, name_map, gen, skip=()):
+    """Random lineage-format tensors (torch layouts) for every entry of
+    ``name_map`` whose target ``module`` has: the LSTM's weights (4H, D), a
+    1x1 conv where the lineage has one onto a Dense weight."""
+    import torch
+
+    state = module.state_dict()
+    sd = {}
+    for tname, pname in name_map.items():
+        if pname not in state or tname in skip:
+            continue
+        shape = tuple(state[pname].shape)
+        if "weight_ih" in tname or "weight_hh" in tname:
+            shape = shape[::-1]
+        elif "conv_context" in tname:
+            shape = shape + (1, 1)
+        sd[tname] = torch.randn(shape, generator=gen) * 0.02
+    return sd
+
+
+def phase_lineage():
+    """Lineage ``.pth`` files at full width through the port's tools:
+    ``convert_damsm`` (text + inception image encoder at ``damsm_coco``)
+    into ``cli.train_gan`` at ``coco_objgan`` via ``TRAIN.NET_E``;
+    ``convert_gan`` (netG + a netD per scale) into ``cli.sample_gan`` via
+    ``TRAIN.NET_G``; ``export_damsm`` and a re-import, bitwise."""
+    import io
+
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.checkpoint import STATE_FILE
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.core.layers import init_weights
+    from objgan_tpu_torch.core.name_maps import (d_net_name_map,
+                                                 export_rnn_encoder,
+                                                 g_net_name_map)
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.models.inception_v3 import (InceptionEncoder,
+                                                      torchvision_state_dict)
+    from objgan_tpu_torch.tools import convert_damsm, convert_gan, export_damsm
+    from objgan_tpu_torch.train.gan import GanTrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lineage_")
+    damsm_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "damsm_coco.yml"))
+    t = damsm_cfg.TEXT
+    gen = torch.Generator().manual_seed(11)
+    # text_encoder.pth: the lineage's nn.Embedding + bidirectional nn.LSTM
+    with torch.random.fork_rng():
+        torch.manual_seed(11)
+        emb = torch.nn.Embedding(t.VOCAB_SIZE, t.GLOVE_DIM)
+        lstm = torch.nn.LSTM(t.GLOVE_DIM, t.HIDDEN_DIM, batch_first=True,
+                             bidirectional=True)
+    text_sd = {"encoder." + k: v.detach().clone()
+               for k, v in emb.state_dict().items()}
+    text_sd.update({"rnn." + k: v.detach().clone()
+                    for k, v in lstm.state_dict().items()})
+    # image_encoder.pth: torchvision Inception-v3's feature modules and the
+    # lineage's two projections, BatchNorm step counters included
+    src = InceptionEncoder(t.EMBEDDING_DIM)
+    init_weights(src, gen)
+    img_sd = {k: v for k, v in torchvision_state_dict(src).items()
+              if not k.startswith("fc.")}
+    img_sd.update({k[:-len("running_mean")] + "num_batches_tracked":
+                   torch.tensor(0) for k in list(img_sd)
+                   if k.endswith("running_mean")})
+    img_sd.update({
+        "emb_features.weight": torch.randn(t.EMBEDDING_DIM, 768, 1, 1,
+                                           generator=gen) * 0.02,
+        "emb_cnn_code.weight": torch.randn(t.EMBEDDING_DIM, 2048,
+                                           generator=gen) * 0.02,
+        "emb_cnn_code.bias": torch.randn(t.EMBEDDING_DIM, generator=gen)})
+    text_pth = os.path.join(tmp, "text_encoder.pth")
+    img_pth = os.path.join(tmp, "image_encoder.pth")
+    torch.save(text_sd, text_pth)
+    torch.save(img_sd, img_pth)
+    net_e = os.path.join(tmp, "net_e")
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_damsm.main(["--cfg", os.path.join(ROOT, "cfg",
+                                                  "damsm_coco.yml"),
+                            "--text_pth", text_pth, "--image_pth", img_pth,
+                            "--out", net_e])
+    convert_s = time.monotonic() - t0
+    saved = torch.load(os.path.join(net_e, "0", STATE_FILE),
+                       map_location="cpu", weights_only=True)
+
+    # Stage C from the converted encoders, at coco_objgan width
+    gan_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml")
+                            ).merged({"OUTPUT_DIR": os.path.join(tmp, "out"),
+                                      "TRAIN": {"NET_E": net_e},
+                                      "TEXT": {"CNN_BACKBONE": "inception"}})
+    steps = 2
+    calls, hook = _count_calls((FusedGroupNorm,))
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            gan = cli.train_gan(gan_cfg, max_steps=steps, device="cuda",
+                                log_every=1)
+        torch.cuda.synchronize()
+        k1, k2, k3 = _counts()
+        train_s = time.monotonic() - t0
+    finally:
+        hook.remove()
+    text = out.getvalue()
+    check(f"loaded pretrained DAMSM encoders from {net_e} (step 0)" in text,
+          "train_gan did not load the converted NET_E")
+    seen = _metric_lines(text)
+    check(len(seen) == steps and all(math.isfinite(v) for m in seen
+                                     for v in m.values()),
+          "lineage Stage-C metrics missing or non-finite")
+    gan_sd = gan.state_dict()
+    enc_keys = [k for k in saved if k.startswith(("text_enc.", "img_enc."))]
+    diff = [k for k in enc_keys if not _tensor_equal(gan_sd[k], saved[k])]
+    check(enc_keys and not diff, f"Stage-C encoders differ from the "
+          f"converted ones at {diff[:3]}")
+    check(torch.equal(gan.text_enc.embedding.weight.cpu(),
+                      text_sd["encoder.weight"]),
+          "the text encoder's embedding is not the lineage's")
+    gn_calls = calls[FusedGroupNorm]
+    check(k1 > 0 and k1 == gn_calls and k2 == 3 * steps and k3 == 3 * steps,
+          f"lineage Stage C launched K1 {k1} ({gn_calls} GroupNorm calls), "
+          f"K2 {k2}, K3 {k3} in {steps} steps")
+    log("lineage", f"convert_damsm: random lineage text_encoder.pth (vocab "
+        f"{t.VOCAB_SIZE}, GloVe {t.GLOVE_DIM}, hidden {t.HIDDEN_DIM}) and "
+        f"inception image_encoder.pth ({len(img_sd)} tensors) -> NET_E in "
+        f"{convert_s:.1f} s; cli.train_gan at coco_objgan width, inception "
+        f"image encoder, {steps} steps in {train_s:.1f} s: finite metrics, "
+        f"its {len(enc_keys)} encoder tensors equal the converted ones; "
+        f"launches per step K1 {k1 // steps}, K2 {k2 // steps}, K3 "
+        f"{k3 // steps}; ms per step " + ", ".join(
+            f"{1000.0 / m['steps_per_sec']:.1f}" for m in seen))
+    launches = {"K1": k1, "K2": k2, "K3": k3}
+    del gan, gan_sd
+
+    # netG_epoch_N.pth + a netD per scale, at coco_objgan width
+    template = GanTrainer(gan_cfg)
+    g_map = g_net_name_map(gan_cfg)
+    g_sd = _lineage_tensors(template.g_net, g_map, gen)
+    k = tuple(template.g_net.init_stage.up0.conv.weight.shape)
+    # the lineage's first up-block takes no layout features: fewer inputs
+    g_sd["h_net1.upsample1.1.weight"] = torch.zeros(
+        k[0], k[1] - 8 * gan_cfg.GAN.GF_DIM, *k[2:])
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        g_sd[f"h_net1.upsample1.2.{leaf}"] = torch.ones(k[0])
+    d_pths = []
+    for dnet, size in zip(template.d_nets, gan_cfg.branch_sizes):
+        d_sd = _lineage_tensors(dnet, d_net_name_map(gan_cfg, size), gen)
+        d_pths.append(os.path.join(tmp, f"netD{size}.pth"))
+        torch.save(d_sd, d_pths[-1])
+    g_pth = os.path.join(tmp, "netG_epoch_600.pth")
+    torch.save(g_sd, g_pth)
+    del template
+    net_g = os.path.join(tmp, "net_g")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        convert_gan.main(["--g_pth", g_pth, *sum((["--d_pth", p]
+                                                   for p in d_pths), []),
+                          "--out", net_g, "--cfg", _yml(tmp, gan_cfg)])
+    report = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith(("G_NET", "D_NET", "  "))]
+    check(len([ln for ln in report if "loaded" in ln]) == 4,
+          f"convert_gan reported {report}")
+    conv = torch.load(os.path.join(net_g, "0", STATE_FILE),
+                      map_location="cpu", weights_only=True)
+    for key in ("g_net.", "ema_g."):
+        check(torch.equal(conv[key + "ca_net.fc.weight"],
+                          g_sd["ca_net.fc.weight"]),
+              f"the converted {key} does not hold the lineage's CA-net")
+    check(_tensor_equal(conv["text_enc.embedding.weight"],
+                        text_sd["encoder.weight"]),
+          "convert_gan did not seed the encoders from NET_E")
+    sample_cfg = gan_cfg.merged({"TRAIN": {"NET_G": net_g, "FLAG": False}})
+    _reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        samples = cli.sample_gan(sample_cfg, num_batches=1, device="cuda")
+    torch.cuda.synchronize()
+    k1_s = _counts()[0]
+    check("UNTRAINED" not in out.getvalue(), "sample_gan found no NET_G")
+    pngs = sorted(os.listdir(samples))
+    check(len(pngs) == gan_cfg.TRAIN.BATCH_SIZE and k1_s > 0,
+          f"sample_gan wrote {len(pngs)} PNGs, launched K1 {k1_s} times")
+    launches["K1"] += k1_s
+    log("lineage", "convert_gan: random lineage netG + netD64/128/256 at "
+        "coco_objgan width -> NET_G (" + "; ".join(
+            ln.split(" (")[0] for ln in report if "loaded" in ln)
+        + f"); cli.sample_gan from it: {len(pngs)} PNGs, K1 {k1_s}")
+
+    # export_damsm, then convert_damsm of the export: the same checkpoint
+    inc_cfg = damsm_cfg.merged({"TEXT": {"CNN_BACKBONE": "inception"}})
+    exp_text = os.path.join(tmp, "export", "text_encoder.pth")
+    exp_img = os.path.join(tmp, "export", "image_encoder.pth")
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = export_damsm.export(inc_cfg, net_e, exp_text, exp_img)
+        convert_damsm.convert(damsm_cfg, exp_text, exp_img,
+                              os.path.join(tmp, "net_e2"))
+    again = torch.load(os.path.join(tmp, "net_e2", "0", STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    diff = [k for k in enc_keys if not torch.equal(again[k], saved[k])]
+    check(not diff, f"export -> import differs at {diff[:3]}")
+    exported = torch.load(exp_text, weights_only=True)
+    check(all(torch.equal(exported[k], v) for k, v in
+              export_rnn_encoder(trainer.text_enc).items()),
+          "the exported text_encoder.pth differs from the encoder")
+    log("lineage", f"export_damsm -> text_encoder.pth ({len(exported)} "
+        f"tensors) + image_encoder.pth, convert_damsm of them: all "
+        f"{len(enc_keys)} encoder tensors bitwise equal to the first "
+        f"conversion")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "k1_per_step": k1 // steps}
+
+
+def _yml(directory, cfg):
+    """``cfg`` as a yml file in ``directory``, for an entry point's --cfg."""
+    import dataclasses
+
+    import yaml
+
+    path = tempfile.mkstemp(suffix=".yml", dir=directory)[1]
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f)
+    return path
+
+
+def _finite(tree):
+    """Every tensor in ``tree`` (nested lists, tuples, dicts) finite."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    return all(bool(torch.isfinite(t.float()).all())
+               for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor))
+
+
+def phase_breakdown():
+    """``utils/breakdown.py`` on the card with ``analyze=True``: Stage-C
+    sampling at ``eval_coco`` width (batch 16, bf16, 64 -> 256 px) on a
+    manifest batch, the train step at ``coco_objgan`` width on a synthetic
+    one; every stage's output finite, K1 launched once per GroupNorm call
+    of each stage."""
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.data.feed import build_feed
+    from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.train.gan import train_noise
+    from objgan_tpu_torch.utils import breakdown
+
+    results, launches = {}, {"K1": 0, "K2": 0, "K3": 0}
+    eval_cfg = _eval_cfg(tempfile.gettempdir()).merged(
+        {"TRAIN": {"FLAG": False}})
+    train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
+    for what, cfg in (("sampling", eval_cfg), ("train", train_cfg)):
+        trainer = cli.make_trainer(cfg, "cuda")
+        gen = torch.Generator("cuda").manual_seed(13)
+        if what == "sampling":
+            feed, _, _ = build_feed(cfg, os.path.join(ROOT, MANIFEST),
+                                    augment=False)
+            batch = cli.to_device(next(feed), "cuda")
+        else:
+            batch = synthetic_batch(cfg, gen)
+        noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE, gen, "cuda")
+        args = (trainer, batch, noise["z"], noise["ca_eps"])
+        stages = (breakdown.sampling_stages(cfg, *args) if what == "sampling"
+                  else breakdown.train_stages(*args))
+        per_stage = {}
+        for name, fn in stages.items():
+            calls, hook = _count_calls((FusedGroupNorm,))
+            try:
+                _reset_counts()
+                res = fn()
+                torch.cuda.synchronize()
+                counts = dict(zip(("K1", "K2", "K3"), _counts()))
+            finally:
+                hook.remove()
+            check(_finite(res), f"breakdown {what}: {name} is not finite")
+            check(counts["K1"] == calls[FusedGroupNorm],
+                  f"breakdown {what}: {name} launched K1 {counts['K1']} "
+                  f"times for {calls[FusedGroupNorm]} GroupNorm calls")
+            per_stage[name] = counts
+            for k, v in counts.items():
+                launches[k] += v
+        normalising = [n for n, c in per_stage.items() if c["K1"]]
+        if what == "sampling":
+            want = [n for n in stages if n.startswith(
+                ("layout_encoder", "init_stage", "attn_stage"))]
+        else:
+            want = list(stages)
+            check(all(c["K2"] == 3 for c in per_stage.values())
+                  and per_stage["g_grad"]["K3"] > 0
+                  and per_stage["d_grad"]["K3"] > 0,
+                  f"breakdown train: ROI-align launches {per_stage}")
+        check(normalising == want, f"breakdown {what}: K1 in {normalising}, "
+              f"expected in {want}")
+        log("breakdown", f"{what}: each stage once, finite, launches "
+            + "; ".join(f"{n} " + "/".join(str(c[k]) for k in c)
+                        for n, c in per_stage.items()) + " (K1/K2/K3)")
+        t0 = time.monotonic()
+        if what == "sampling":
+            out = breakdown.sampling_breakdown(cfg, *args, n_loop=8,
+                                               analyze=True)
+        else:
+            out = breakdown.train_breakdown(cfg, *args, n_loop=4,
+                                            analyze=True)
+        results[what] = out
+        log("breakdown", f"{what}_breakdown (analyze, {time.monotonic() - t0:.1f} s): "
+            + ", ".join(f"{k} {v:.6g}" for k, v in out.items()))
+        del trainer, batch, args, stages
+        torch.cuda.empty_cache()
+    return {"launches": launches, **results}
+
+
+def phase_hw_check():
+    """``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
+    subprocess: exit 0, a PASS line per check; again under
+    ``compute-sanitizer --tool memcheck`` at a narrow shape, with every
+    tensor its own allocation, where the toolkit has the sanitizer and it
+    runs a plain torch kernel (a control run first)."""
+    import re
+
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "objgan_tpu_torch.tools.kernel_hw_check"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    secs = time.monotonic() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        log("hw_check", ln)
+    passed = [ln for ln in lines if ln.startswith("PASS")]
+    check(proc.returncode == 0 and len(passed) == 6,
+          f"kernel_hw_check exited {proc.returncode} with {len(passed)} PASS "
+          f"lines:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+)", proc.stdout)
+    check(found is not None, "kernel_hw_check printed no launch counts")
+    launches = dict(zip(("K1", "K2", "K3"), map(int, found.groups())))
+    log("hw_check", f"exit 0 in {secs:.1f} s; launches {launches}")
+    sanitizer = "/usr/local/cuda/bin/compute-sanitizer"
+    if not os.path.exists(sanitizer):
+        log("hw_check", f"{sanitizer} is not on this host: no memcheck run")
+        return {"launches": launches, "memcheck": "absent"}
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+
+    def memcheck(*argv):
+        t0 = time.monotonic()
+        proc = subprocess.run([sanitizer, "--tool", "memcheck",
+                               "--error-exitcode", "3", sys.executable,
+                               *argv], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        text = proc.stdout + proc.stderr
+        summary = [ln for ln in text.splitlines() if "ERROR SUMMARY" in ln]
+        first = [ln for ln in text.splitlines() if ln.startswith(
+            "========= ") and ("Program hit" in ln or "Invalid" in ln
+                               or "Error" in ln)][:2]
+        clean = (proc.returncode == 0 and bool(summary)
+                 and summary[-1].endswith(" 0 errors"))
+        return clean, proc, summary, first, time.monotonic() - t0
+
+    # a control: one plain torch kernel under the sanitizer
+    ok, proc, summary, first, secs = memcheck(
+        "-c", "import torch; x = torch.ones(8, device='cuda'); "
+        "print(float(x.sum()))")
+    if not ok:
+        log("hw_check", f"{sanitizer} is on this host but cannot run a plain "
+            f"torch kernel (exit {proc.returncode} in {secs:.1f} s, "
+            f"{summary}, first report {first}): no memcheck of the kernels")
+        return {"launches": launches, "memcheck": "unusable"}
+    ok, proc, summary, first, secs = memcheck(
+        "-m", "objgan_tpu_torch.tools.kernel_hw_check", "--c", "64", "--o",
+        "4")
+    log("hw_check", f"under compute-sanitizer memcheck (--c 64 --o 4, no "
+        f"caching allocator: every tensor its own allocation): exit "
+        f"{proc.returncode} in {secs:.1f} s; {summary}")
+    check(ok, f"memcheck: exit {proc.returncode}, first reports {first}\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"launches": launches, "memcheck": summary[-1]}
+
+
 def _child_processes():
     """(pid, command line) of every running process whose parent is this
     one, from /proc."""
@@ -2964,7 +3426,13 @@ def main():
     phase_small_eval()
     feed = phase_feed(train["k1_per_step"])
     ddp = phase_ddp(train)
+    phase_native()
+    lineage = phase_lineage()
+    torch.cuda.empty_cache()
+    bd = phase_breakdown()
+    hw = phase_hw_check()
     phase_processes()
+    new_paths = {"lineage": lineage, "breakdown": bd, "hw_check": hw}
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -2985,6 +3453,8 @@ def main():
                  "max_abs_err": feed["errs"]["K1"]},
         "ddp": {"launches": ddp["launches"]["K1"],
                 "max_abs_err": ddp["errs"]["K1"]},
+        **{path: {"launches": r["launches"]["K1"]}
+           for path, r in new_paths.items()},
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                   "library_ms": r["library_ms"], "regimes": r["regimes"],
@@ -3012,6 +3482,8 @@ def main():
                      "max_abs_err": feed["errs"][key]},
             "ddp": {"launches": ddp["launches"][key],
                     "max_abs_err": ddp["errs"][key]},
+            **{path: {"launches": r["launches"][key]}
+               for path, r in new_paths.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

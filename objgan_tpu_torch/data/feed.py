@@ -5,13 +5,16 @@ classic batches, or with ``wire`` the uint8 wire batches of
 ``data/wire.py``. Under data parallelism (a process group, see
 ``parallel/sharding.py``) each rank feeds its strided part of the records,
 ``records[rank::world]``, at its rows of ``TRAIN.BATCH_SIZE``, with their
-global record ids (offset ``rank``, stride ``world``) as class ids.
+global record ids (offset ``rank``, stride ``world``) as class ids. A feed
+with masks builds the native polygon fill (``native/``) here, in the
+calling process, before any worker starts.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, Optional, Tuple
 
+from objgan_tpu_torch import native
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.data.pipeline import (CocoFeed, load_records_json,
                                             split_records)
@@ -64,6 +67,8 @@ def build_feed(cfg: Config, manifest: Optional[str],
         _, local_b = sharding.process_local_batch_slice(cfg.TRAIN.BATCH_SIZE)
         cfg = cfg.merged({"TRAIN": {"BATCH_SIZE": local_b}})
     ids = dict(id_offset=rank, id_stride=world)
+    if with_masks:
+        native.build()  # here, once, before any worker process fills
     if grain:
         from objgan_tpu_torch.data.grain_feed import grain_feed
 

@@ -27,9 +27,9 @@ deterministic work per record (decode, resize, rasterization, caption
 tokenization) is then done once and kept in a RAM cache when the dataset's
 predicted footprint fits the budget of :func:`wire_cache_allowed`.
 
-Left out of the copy: the native C++ rasterizer. Polygons are filled by
-the numpy even-odd scanline fill, which ``tests/test_core.py`` holds equal
-to it.
+Polygons are filled by the C++ scanline fill of ``native/rasterize.cc``,
+built with g++ at first use; a failed build raises (no quiet fallback).
+``_numpy_polygon_fill`` is its plain version, which the tests hold it to.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from objgan_tpu_torch import native
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.data.tokenizer import Vocab
 from objgan_tpu_torch.data.wire import WIRE_IMAGE, WIRE_SHAPES
@@ -49,12 +50,12 @@ def polygon_to_box_mask(
     polygon: np.ndarray, box: np.ndarray, size: int
 ) -> np.ndarray:
     """Rasterize one normalized-image-coords polygon into the object's own
-    (size, size) box frame."""
+    (size, size) box frame, with the native fill (``native/``)."""
     x0, y0, w, h = [float(v) for v in box]
     local = np.empty_like(polygon, dtype=np.float64)
     local[:, 0] = (polygon[:, 0] - x0) / max(w, 1e-6)
     local[:, 1] = (polygon[:, 1] - y0) / max(h, 1e-6)
-    return _numpy_polygon_fill(local, size)
+    return native.rasterize_polygon(local, size)
 
 
 def _numpy_polygon_fill(poly: np.ndarray, size: int) -> np.ndarray:

@@ -230,6 +230,21 @@ def _pool_matrices(boxes: torch.Tensor, h: int, w: int, out_size: int,
     return a_y, a_x
 
 
+def roi_work(boxes: torch.Tensor, f_shape, out_size: int,
+             sampling_ratio: int) -> Tuple[int, int]:
+    """(touched feature pixels, multiply-add terms) of one ROI-align call,
+    counted from its boxes: the pixels some sample weighs, and the sum over
+    (b, o) of nnz(A_y) * nnz(A_x), each term one multiply-add per channel.
+    K2's least work reads the touched pixels once and writes the output
+    once; K3's reads g once and writes the whole feature gradient once."""
+    _, h, w, _ = f_shape
+    a_y, a_x = _pool_matrices(boxes, h, w, out_size, sampling_ratio)
+    rows, cols = (a_y != 0).any(-2), (a_x != 0).any(-2)  # (B, O, H|W)
+    touched = (rows[..., :, None] & cols[..., None, :]).any(1).sum()
+    terms = ((a_y != 0).sum((-1, -2)) * (a_x != 0).sum((-1, -2))).sum()
+    return int(touched), int(terms)
+
+
 def roi_align_reference(features: torch.Tensor, boxes: torch.Tensor,
                         out_size: int = 7,
                         sampling_ratio: int = 2) -> torch.Tensor:

@@ -235,7 +235,7 @@ def _rank(rank: int, world: int, port: int, device: str, backend: str,
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def spawn(world: int, fn: Callable, args: tuple = (), device="cpu",
+def spawn(world: int, fn: Callable, args: tuple = (), device="cuda",
           backend: Optional[str] = None) -> List[Any]:
     """``fn(device, *args)`` in ``world`` spawned ranks of one process
     group; the ranks' results, in rank order. ``fn`` and ``args`` are
@@ -304,7 +304,7 @@ def compare(one: Dict[str, Any], ranks: List[Dict[str, Any]]
     return out
 
 
-def run(world: int, device="cpu", backend: Optional[str] = None,
+def run(world: int, device="cuda", backend: Optional[str] = None,
         bf16: str = "cfg/coco_objgan.yml") -> Dict[str, Any]:
     """The dry run: ``dry_run`` in ``world`` ranks and at world size 1
     (here, no process group), compared. Raises on a failed check; returns

@@ -452,3 +452,30 @@ def test_kernels_launch_on_the_tensors_card(dev):
         dfw = ra.roi_align_backward_reference(boxes, g, f.shape,
                                               torch.float32, 4, 2)
         assert float((df - dfw).abs().max()) <= 1e-4
+
+
+def test_kernel_hw_check_passes(dev, capsys):
+    """``python -m objgan_tpu_torch.tools.kernel_hw_check``: K1 (fp32, bf16,
+    with and without GLU) and K2 + K3 (fp32, bf16) against their plain
+    versions, at its default shapes and at a narrow one."""
+    from objgan_tpu_torch.tools import kernel_hw_check
+
+    assert kernel_hw_check.main([]) == 0
+    assert kernel_hw_check.main(["--c", "64", "--o", "3"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(ln.startswith("PASS") for ln in lines) == 12
+    assert not any(ln.startswith("FAIL") for ln in lines)
+
+
+def test_device_profile_sees_the_kernels(dev):
+    """``utils/profiling.device_profile``: the busy time is the union of the
+    device intervals, within the wall time, and K1 appears by name."""
+    from objgan_tpu_torch.utils import profiling
+
+    x, scale, bias = _inputs(16, 4096, 64, torch.bfloat16, dev)
+    wall, busy, spans = profiling.device_profile(
+        lambda: [groupnorm.group_norm_cuda(x, scale, bias, 32, 1e-5, True)
+                 for _ in range(5)])
+    assert 0 < busy <= wall
+    assert busy == profiling.busy_ms(spans)
+    assert sum("gn_fused_kernel" in name for *_, name in spans) == 5

@@ -137,6 +137,26 @@ def test_parallel_modules_import_no_jax(module):
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+@pytest.mark.parametrize("tool", ["convert_damsm", "convert_gan",
+                                  "export_damsm", "kernel_hw_check"])
+def test_tools_import_no_jax(tool):
+    """Each lineage and hardware tool alone in a fresh process, its
+    ``--help`` parsed, imports nothing of JAX or the JAX package."""
+    module = f"objgan_tpu_torch.tools.{tool}"
+    code = ("import runpy, sys\n"
+            "sys.argv = [sys.argv[1], '--help']\n"
+            "try:\n"
+            "    runpy.run_module(sys.argv[0], run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n" + FORBIDDEN_MODULES)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, module], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "usage:" in proc.stdout
+
+
 def test_guard_catches_the_jax_package():
     """The guard itself: a process that imports a JAX-free module of the
     JAX package fails it."""
