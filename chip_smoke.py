@@ -186,13 +186,35 @@ and strict); and checks every hand-written kernel on them:
                 each stage once first: finite, K1 once per GroupNorm call
                 (and so in exactly the stages that normalise), K2 3 times
                 in each train part, K3 in both gradients;
-30. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
+30. orbax       steps the JAX package wrote with Orbax
+                (``tests/data/orbax_fixtures.tar.xz``, no JAX here): the
+                full-width ``GanTrainState`` at ``cfg/coco_objgan.yml``
+                decoded by the port's reader (libzstd's version, ms, MB)
+                and every leaf's sha256 held to JAX's; restored onto a
+                ``GanTrainer`` on the card through ``CheckpointManager.
+                restore_latest`` (step and each optimiser's step = optax's
+                count, every tensor equal); ``cli.train_gan`` resumed from
+                a copy for ORBAX_STEPS steps ("resumed from step 1000",
+                finite, ``state.pt`` beside the Orbax step), its K1/K2/K3
+                calls of one more step against their twins; one batch of
+                ``cli.sample_gan`` through ``TRAIN.NET_G``; each tiny
+                state (DAMSM, Stage A, B, C) restored and stepped on the
+                card and on the CPU, against each other and JAX's step
+                (``tests/data/orbax_goldens.npz``); ``run_serve`` composed
+                from the tiny box, shape and gan steps, 2 requests;
+31. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
                 subprocess: exit 0, a PASS line for each of K2 + K3 (fp32,
                 bf16) and K1 (fp32, bf16, each with and without GLU); again
                 under ``compute-sanitizer --tool memcheck`` at ``--c 64
                 --o 4``, every tensor its own allocation, 0 errors, where
                 the toolkit has the sanitizer (else the phase says so);
-31. processes   no process that the smoke started is left: the worker
+32. guard_pages ``python -m objgan_tpu_torch.tools.guard_pages`` in a
+                subprocess: K1 (resident and streaming plans, the ring,
+                the cluster sizes, the scalar paths), K2 and K3 with every
+                input ending at an unmapped page, each against its twin;
+                and its control, one float read past a guarded tensor,
+                which must die of an illegal address;
+33. processes   no process that the smoke started is left: the worker
                 feeds' fork server stopped with the last feed, and the
                 resource tracker it started stops here (the ranks and
                 torchrun's agent of phase 26 included).
@@ -245,6 +267,12 @@ BF16_ATOL, BF16_RTOL = 3e-2, 2e-2
 # of at most 2^-8 relative) on both sides
 ROI_BF16_ATOL, ROI_BF16_RTOL = 1e-2, 1e-2
 TRAIN_STEPS = 6
+ORBAX_STEPS = 2  # Stage-C steps resumed from the JAX run's step
+ORBAX_ARCHIVE = "tests/data/orbax_fixtures.tar.xz"
+ORBAX_GOLDENS = "tests/data/orbax_goldens.npz"
+# a tiny restored step's metrics against JAX's, relative: the CPU parity
+# tests' (tests/test_torch_orbax.py)
+ORBAX_METRIC_RTOL = {"gan": 1e-4, "damsm": 1e-4, "box": 2e-5, "shape": 2e-5}
 DAMSM_STEPS = 6
 BOX_STEPS = 5
 SHAPE_STEPS = 5
@@ -3261,6 +3289,335 @@ def phase_breakdown():
     return {"launches": launches, **results}
 
 
+def _flat_tree(tree, path=()):
+    """{Orbax name (keys joined by "."): leaf} of a ``read_orbax`` tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = enumerate(tree)
+    else:
+        return {} if tree is None else {".".join(path): tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_tree(v, path + (str(k),)))
+    return out
+
+
+def _leaf_digest(leaf):
+    """(little-endian dtype string, shape, sha256) of a leaf."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if isinstance(leaf, torch.Tensor):  # bf16
+        return ("bfloat16", list(leaf.shape), hashlib.sha256(
+            leaf.view(torch.int16).numpy().tobytes()).hexdigest())
+    a = np.asarray(leaf)  # ascontiguousarray would make a scalar 1-d
+    le = a.astype(a.dtype.newbyteorder("<"))
+    return le.dtype.str, list(a.shape), hashlib.sha256(
+        le.tobytes()).hexdigest()
+
+
+def _orbax_tiny(tiny_root, device):
+    """Each tiny JAX state (DAMSM, Stage A, B, C) restored on ``device``
+    and on the CPU: a ``grads`` call on each, held together as phases
+    ``small_*`` hold them; then one train step on each, both held to JAX's
+    step. Returns the launches on ``device``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from objgan_tpu_torch.train import card_check
+
+    goldens = dict(np.load(os.path.join(ROOT, ORBAX_GOLDENS)))
+    launches = {"K1": 0, "K2": 0, "K3": 0}
+    for stage in ("gan", "damsm", "box", "shape"):
+        before = _counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = card_check.restored_grads_on_card(stage, tiny_root, goldens,
+                                                  device)
+            card, m_card, step = card_check.restored_step(stage, tiny_root,
+                                                          goldens, device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rose = [a - b for a, b in zip(_counts(), before)]
+            cpu, m_cpu, _ = card_check.restored_step(stage, tiny_root,
+                                                     goldens, "cpu")
+        check(r["metric_err"] <= card_check.METRIC_RTOL
+              and r["grad_err"] <= card_check.GRAD_RTOL,
+              f"tiny {stage} restored, card vs CPU: metrics "
+              f"{r['metric_err']:.3g}, gradient of {r['worst']} "
+              f"{r['grad_err']:.3g}")
+        jax_errs = [card_check.golden_errors(stage, t, m, goldens)
+                    for t, m in ((card, m_card), (cpu, m_cpu))]
+        rtol = ORBAX_METRIC_RTOL[stage]
+        for where, e in zip(("card", "CPU"), jax_errs):
+            check(e["step_ok"] and e["metric_err"] <= rtol
+                  and e["state_score"] <= 1.0,
+                  f"tiny {stage} on the {where} against JAX's step: {e}")
+        need = {"gan": (1, 1, 1), "damsm": (1, 0, 0), "shape": (1, 0, 0),
+                "box": (0, 0, 0)}[stage]
+        check(device != "cuda" or all((n > 0) == bool(k)
+                                      for n, k in zip(rose, need)),
+              f"tiny {stage} on the card launched K1/K2/K3 {rose}")
+        for k, n in zip(("K1", "K2", "K3"), rose):
+            launches[k] += n
+        log("orbax", f"tiny {stage} (JAX step {step}, fp32) restored on the "
+            f"card and on the CPU: grads, {r['metrics']} metrics within "
+            f"{r['metric_err']:.3g} relative (rtol "
+            f"{card_check.METRIC_RTOL}), {r['grads']} gradients within "
+            f"{r['grad_err']:.3g} relative norm (worst {r['worst']}; limit "
+            f"{card_check.GRAD_RTOL}); one train step on each (card "
+            f"launches K1/K2/K3 {rose} for both calls) against JAX's: "
+            f"metrics {jax_errs[0]['metric_err']:.3g} (card), "
+            f"{jax_errs[1]['metric_err']:.3g} (CPU) relative (limit {rtol}), "
+            f"state scores {jax_errs[0]['state_score']:.3g}, "
+            f"{jax_errs[1]['state_score']:.3g} (limit 1: each tensor within "
+            f"{card_check.STATE_ATOL} absolute or "
+            f"{card_check.STATE_RTOL[stage]} relative in norm)")
+    return launches
+
+
+def _orbax_serve(tiny_root, vocab, out_dir, device):
+    """``run_serve`` composed from the tiny Orbax box, shape and gan steps:
+    2 requests answered. Returns K1's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from objgan_tpu_torch.core.config import tiny_test_config
+    from objgan_tpu_torch.serving import run_serve
+
+    tcfg = tiny_test_config().merged({"DTYPE": "float32"})
+    responses = []
+    out, err = io.StringIO(), io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        stats = run_serve(tcfg, vocab, [{"id": i, "caption": c} for i, c in
+                                        enumerate(CAPTIONS[:2])],
+                          out_dir, batch_size=2, emit=responses.append,
+                          device=device, output_dir=tiny_root)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    k1 = _counts()[0]
+    text = out.getvalue()
+    check(all(f"restored the {n} stage from" in text
+              for n in ("box", "shape", "gan"))
+          and "UNTRAINED" not in err.getvalue(),
+          f"the composed serve did not restore every stage:\n{text[-800:]}\n"
+          f"{err.getvalue()[-800:]}")
+    check(len(responses) == 2 and all(
+        r["image"] and os.path.getsize(r["image"]) > 0 for r in responses)
+        and (k1 > 0 or device != "cuda"),
+        f"{len(responses)} responses, K1 {k1}")
+    log("orbax", f"run_serve from the tiny Orbax box, shape and gan steps "
+        f"(ObjGanPipeline.load_states): 2 requests answered with PNGs in "
+        f"{stats['batches']} batch, K1 {k1}")
+    return k1
+
+
+def phase_orbax(vocab):
+    """Steps the JAX package wrote (``tests/data/orbax_fixtures.tar.xz``,
+    from ``tests/make_orbax_fixtures.py``: no JAX here) through the port's
+    own reader: the full-width ``GanTrainState`` decoded and every leaf's
+    sha256 held to JAX's; restored into a ``GanTrainer`` on the card
+    (``CheckpointManager.restore_latest``); ``cli.train_gan`` resumed from
+    it for ORBAX_STEPS steps on a copy, its K1/K2/K3 calls of one more step
+    held against their twins; one batch sampled through ``TRAIN.NET_G``;
+    each tiny state (DAMSM, Stage A, B, C) restored and stepped on the card
+    and on the CPU, both against each other and against JAX's step
+    (``tests/data/orbax_goldens.npz``); the composed serve from the tiny
+    box, shape and gan steps."""
+    import contextlib
+    import io
+    import tarfile
+
+    import numpy as np
+    import torch
+
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core import bridge, zstd
+    from objgan_tpu_torch.core import checkpoint as ckpt
+    from objgan_tpu_torch.core.config import cfg_from_file
+    from objgan_tpu_torch.models.common import FusedGroupNorm
+    from objgan_tpu_torch.train.gan import GanTrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
+    with tarfile.open(os.path.join(ROOT, ORBAX_ARCHIVE)) as tar:
+        tar.extractall(tmp, filter="data")
+    root = os.path.join(tmp, "orbax")
+    full_ckpt = os.path.join(root, "full", "coco_objgan_gan", "ckpt")
+    with open(os.path.join(root, "full_leaves.json")) as f:
+        want = json.load(f)
+    step = want["step"]
+
+    # the full-width state: decode, hashes, restore onto the card
+    decoder = zstd.version()
+    t0 = time.perf_counter()
+    tree = ckpt.read_orbax(os.path.join(full_ckpt, str(step)))
+    read_ms = 1000.0 * (time.perf_counter() - t0)
+    flat = _flat_tree(tree)
+    mb = sum(np.asarray(v).nbytes if not isinstance(v, torch.Tensor)
+             else v.numel() * 2 for v in flat.values()) / 1e6
+    check(sorted(flat) == sorted(want["leaves"]),
+          f"{len(flat)} leaves read, JAX's tree has {len(want['leaves'])}")
+    bad = [k for k, v in want["leaves"].items()
+           if list(_leaf_digest(flat[k])) != [v["dtype"], v["shape"],
+                                              v["sha256"]]]
+    check(not bad, f"{len(bad)} leaves differ from JAX's: {bad[:3]}")
+    log("orbax", f"full-width GanTrainState (cfg/coco_objgan.yml, JAX step "
+        f"{step}): read_orbax with {decoder}, {len(flat)} leaves, "
+        f"{mb:.1f} MB decoded in {read_ms:.0f} ms; every leaf's dtype, "
+        f"shape and sha256 equal JAX's")
+    cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
+    trainer = GanTrainer(cfg).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt.CheckpointManager(full_ckpt).restore_latest(trainer)
+    torch.cuda.synchronize()
+    restore_ms = 1000.0 * (time.perf_counter() - t0)
+    check(restored == step and trainer.step == step,
+          f"restore_latest gave {restored}, trainer step {trainer.step}")
+    counts = {float(opt.state[p]["step"]) for opt in trainer.optimizers()
+              for g in opt.param_groups for p in g["params"]}
+    check(counts == {float(want["count"])} and len(trainer.optimizers()) == 5,
+          f"optimiser steps {counts} for optax count {want['count']}")
+    sd = trainer.state_dict()
+    wanted = bridge.jax_state_dict(trainer, tree)
+    diff = [k for k, v in wanted.items()
+            if not torch.equal(sd[k].cpu().to(v.dtype), v)]
+    check(not diff, f"restored tensors differ from the tree at {diff[:3]}")
+    log("orbax", f"CheckpointManager.restore_latest onto a GanTrainer on the "
+        f"card in {restore_ms:.0f} ms (decode included): step {restored}, "
+        f"{len(trainer.optimizers())} Adam optimisers (G, 3 DNets, object D) "
+        f"at step {want['count']}; all {len(wanted)} state tensors equal the "
+        f"tree's")
+    del trainer, sd, wanted, tree, flat
+    torch.cuda.empty_cache()
+
+    # resume cli.train_gan from a copy of the JAX run's OUTPUT_DIR
+    out_dir = os.path.join(tmp, "run")
+    shutil.copytree(os.path.join(root, "full"), out_dir)
+    run_ckpt = os.path.join(out_dir, "coco_objgan_gan", "ckpt")
+    train_cfg = cfg.merged({"OUTPUT_DIR": out_dir})
+    calls, hook = _count_calls((FusedGroupNorm,))
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        with contextlib.redirect_stdout(out):
+            trainer = cli.train_gan(train_cfg, max_steps=step + ORBAX_STEPS,
+                                    device="cuda", log_every=1)
+        torch.cuda.synchronize()
+        k1, k2, k3 = _counts()
+    finally:
+        hook.remove()
+    text = out.getvalue()
+    check(f"resumed from step {step}" in text,
+          "train_gan did not resume from the Orbax step")
+    seen = _metric_lines(text)
+    check(len(seen) == ORBAX_STEPS and all(
+        math.isfinite(v) for m in seen for v in m.values()),
+        "resumed Stage-C metrics missing or non-finite")
+    kinds = ckpt.steps_in(run_ckpt)
+    check(kinds == {step: ckpt.ORBAX, step + ORBAX_STEPS: ckpt.PORT},
+          f"steps after the resumed run: {kinds}")
+    gn_calls = calls[FusedGroupNorm]
+    check(k1 > 0 and k1 == gn_calls and k2 == 3 * ORBAX_STEPS
+          and k3 == 3 * ORBAX_STEPS,
+          f"resumed run launched K1 {k1} ({gn_calls} GroupNorm calls), K2 "
+          f"{k2}, K3 {k3} in {ORBAX_STEPS} steps")
+    log("orbax", f"cli.train_gan with OUTPUT_DIR on a copy of the JAX run: "
+        f"\"resumed from step {step}\", {ORBAX_STEPS} steps, finite metrics "
+        f"(g_loss " + ", ".join(f"{m['g_loss']:.4g}" for m in seen)
+        + ", d_loss " + ", ".join(f"{m['d_loss']:.4g}" for m in seen)
+        + f"), ms per step " + ", ".join(
+            f"{1000.0 / m['steps_per_sec']:.1f}" for m in seen)
+        + f"; step {step + ORBAX_STEPS} written as state.pt beside the Orbax "
+        f"step {step}, which keep-N left alone; launches per step K1 "
+        f"{k1 // ORBAX_STEPS}, K2 {k2 // ORBAX_STEPS}, K3 {k3 // ORBAX_STEPS}")
+    gn, fwd, bwd, _ = _record_train_step(train_cfg, trainer)
+    errs = _hold_against_twins("orbax", gn, fwd, bwd)
+    log("orbax", f"one more step of the resumed trainer: its {len(gn)} K1, "
+        f"{len(fwd)} K2 and {len(bwd)} K3 calls against their twins, max "
+        f"err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    del trainer, gn, fwd, bwd
+    torch.cuda.empty_cache()
+    launches = {"K1": k1, "K2": k2, "K3": k3}
+
+    # sample from the JAX step through TRAIN.NET_G
+    sample_cfg = cfg.merged({"OUTPUT_DIR": os.path.join(tmp, "sample"),
+                             "TRAIN": {"NET_G": full_ckpt, "FLAG": False}})
+    out, err = io.StringIO(), io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        samples = cli.sample_gan(sample_cfg, num_batches=1, device="cuda")
+    torch.cuda.synchronize()
+    k1_s = _counts()[0]
+    pngs = os.listdir(samples)
+    check("no generator checkpoint" not in out.getvalue() and k1_s > 0
+          and len(pngs) == cfg.TRAIN.BATCH_SIZE,
+          f"sample_gan from NET_G: {len(pngs)} PNGs, K1 {k1_s}:\n"
+          f"{out.getvalue()[-500:]}")
+    launches["K1"] += k1_s
+    log("orbax", f"cli.sample_gan with TRAIN.NET_G at the JAX run's ckpt: "
+        f"{len(pngs)} PNGs, K1 {k1_s}")
+
+    for k, r in _orbax_tiny(os.path.join(root, "tiny"), "cuda").items():
+        launches[k] += r
+    launches["K1"] += _orbax_serve(os.path.join(root, "tiny"), vocab,
+                                   os.path.join(tmp, "served"), "cuda")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "errs": errs, "decoder": decoder,
+            "read_ms": read_ms, "mb": mb, "restore_ms": restore_ms}
+
+
+def phase_guard_pages():
+    """``python -m objgan_tpu_torch.tools.guard_pages`` in a subprocess:
+    K1 (both plans), K2 and K3 with every input ending at an unmapped page,
+    each against its twin; and its control, a plain read one element past
+    a guarded tensor, which must fault."""
+    import re
+
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    secs = time.monotonic() - t0
+    lines = proc.stdout.splitlines()
+    checks = [ln for ln in lines if ln.startswith(("PASS", "FAIL"))]
+    for ln in checks:
+        log("guard_pages", ln)
+    check(proc.returncode == 0 and lines and lines[-1].endswith("PASS"),
+          f"guard_pages exited {proc.returncode} (last launched: "
+          f"{[ln for ln in lines if ln.startswith('run ')][-1:]}):\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    regimes = {ln.split(": ", 1)[1].split(" cluster")[0] for ln in checks
+               if ln.startswith("PASS K1")}
+    check(regimes == {"resident", "streaming"}, f"K1 plans run: {regimes}")
+    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+)", proc.stdout)
+    check(found is not None, "guard_pages printed no launch counts")
+    launches = dict(zip(("K1", "K2", "K3"), map(int, found.groups())))
+    t0 = time.monotonic()
+    control = subprocess.run(
+        [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages",
+         "--control"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    faulted = (control.returncode != 0
+               and "illegal memory access" in control.stderr)
+    check(faulted, f"the control read past a guarded tensor without a fault "
+          f"(exit {control.returncode}):\n{control.stdout[-500:]}\n"
+          f"{control.stderr[-1000:]}")
+    log("guard_pages", f"{lines[-1]} in {secs:.1f} s (K1 plans "
+        f"{sorted(regimes)}; launches {launches}); control: a plain read one float past a "
+        f"guarded tensor faults (exit {control.returncode}, illegal memory "
+        f"access, {time.monotonic() - t0:.1f} s)")
+    return {"launches": launches}
+
+
 def phase_hw_check():
     """``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
     subprocess: exit 0, a PASS line per check; again under
@@ -3429,15 +3786,20 @@ def main():
     phase_native()
     lineage = phase_lineage()
     torch.cuda.empty_cache()
+    orbax = phase_orbax(vocab)
+    torch.cuda.empty_cache()
     bd = phase_breakdown()
     hw = phase_hw_check()
+    guard = phase_guard_pages()
     phase_processes()
-    new_paths = {"lineage": lineage, "breakdown": bd, "hw_check": hw}
+    new_paths = {"lineage": lineage, "breakdown": bd, "hw_check": hw,
+                 "guard_pages": guard}
     kernels = [{
         "name": "groupnorm_glu", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": max(k1_err, k1_train_err, k1_damsm_err,
-                           k1_shape_err, k1_eval_err, feed["errs"]["K1"]),
+                           k1_shape_err, k1_eval_err, feed["errs"]["K1"],
+                           orbax["errs"]["K1"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": k1["library_ms"],
@@ -3453,6 +3815,8 @@ def main():
                  "max_abs_err": feed["errs"]["K1"]},
         "ddp": {"launches": ddp["launches"]["K1"],
                 "max_abs_err": ddp["errs"]["K1"]},
+        "orbax": {"launches": orbax["launches"]["K1"],
+                  "max_abs_err": orbax["errs"]["K1"]},
         **{path: {"launches": r["launches"]["K1"]}
            for path, r in new_paths.items()},
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
@@ -3473,7 +3837,8 @@ def main():
             "name": name, "route": "cuda", "source": ROI_SOURCE,
             "replaces": replaces,
             "launches": train["k2" if key == "K2" else "k3"],
-            "max_abs_err": max(r["max_abs_err"], feed["errs"][key]),
+            "max_abs_err": max(r["max_abs_err"], feed["errs"][key],
+                               orbax["errs"][key]),
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3482,6 +3847,8 @@ def main():
                      "max_abs_err": feed["errs"][key]},
             "ddp": {"launches": ddp["launches"][key],
                     "max_abs_err": ddp["errs"][key]},
+            "orbax": {"launches": orbax["launches"][key],
+                      "max_abs_err": orbax["errs"][key]},
             **{path: {"launches": r["launches"][key]}
                for path, r in new_paths.items()},
         })

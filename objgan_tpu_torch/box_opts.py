@@ -7,12 +7,14 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
+_CHECKPOINTS = ("Resumes from, or samples, the newest step under OUTPUT_DIR/"
+                "<CONFIG_NAME>_box/ckpt: the port's state.pt or a JAX run's "
+                "Orbax step; writes state.pt only.")
 
 
 def parse_opts(argv=None):
     p = argparse.ArgumentParser(description="Stage A: caption -> layout.",
-                                epilog=_LATER)
+                                epilog=_CHECKPOINTS)
     p.add_argument("--cfg", dest="cfg_file", default=None)
     p.add_argument("--rnn_size", type=int, default=None)
     p.add_argument("--input_encoding_size", type=int, default=None)

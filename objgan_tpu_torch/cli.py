@@ -11,8 +11,9 @@ one step per call), ``load_damsm_encoders``, ``pretrain_damsm``,
 
 Each stage writes under ``OUTPUT_DIR/<CONFIG_NAME>_<stage>``: its
 checkpoints (``ckpt/<step>``, keep-3), ``<stage>_metrics.csv`` and the
-attention-grid snapshots, and resumes from its newest checkpoint. A step's
-noise comes from a generator seeded from (``RNG_SEED``, step)
+attention-grid snapshots, and resumes from its newest checkpoint (the
+port's ``state.pt`` or a JAX run's Orbax step, ``core/checkpoint.py``).
+A step's noise comes from a generator seeded from (``RNG_SEED``, step)
 (``train/common.py::step_generator``), as do the synthetic batches when no
 manifest feed is given, so a resumed run equals an unbroken one on them. A
 manifest feed starts its shuffle over on a resume, as the JAX package's

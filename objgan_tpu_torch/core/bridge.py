@@ -18,11 +18,17 @@ The same names carry the Inception-v3 (``models/inception_v3.py``: the
 frozen lite-IS artifact's encoder (``freeze_probe.py``) across.
 ``torch_to_jax`` is the inverse: a module's parameters as a JAX tree.
 
-``load_gan_state`` loads a whole Stage-C train state into the port's
-trainer (with fresh optimisers); ``load_damsm_state``, ``load_box_state``
-and ``load_shape_state`` a DAMSM, Stage-A and Stage-B state with their
-Adam moments and step (optax's ``masked`` state of an inception DAMSM
-backbone included: only the projections have moments).
+``jax_state_dict`` reads a whole JAX train state (``GanTrainState``,
+``DamsmTrainState``, ``BoxTrainState``, ``ShapeTrainState``) as the port
+trainer's own state dict (``train/common.py::Trainer.state_dict``): every
+network's parameters, the label table, optax Adam's ``count``, ``mu`` and
+``nu`` as each optimiser's ``step``, ``exp_avg`` and ``exp_avg_sq``, and
+the trainer's ``step``. ``load_jax_state`` checks that it fits and loads
+it into the trainer of any of the four stages. optax's ``masked``
+state of an inception DAMSM backbone has moments for the projections only;
+its masked leaves (``MaskedNode``, or ``None`` in a tree read from Orbax)
+carry nothing. The state may hold numpy or JAX arrays, or come from
+``core/checkpoint.py::read_orbax``.
 """
 
 from __future__ import annotations
@@ -40,8 +46,10 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, Mapping):
             out.update(_flatten(val, path))
-        elif isinstance(val, tuple) and not val:
+        elif val is None or (isinstance(val, tuple) and not val):
             continue  # optax.masked's MaskedNode: a leaf with no state
+        elif isinstance(val, torch.Tensor):  # bf16, from read_orbax
+            out[path] = val.float().numpy()
         else:
             out[path] = np.asarray(val)
     return out
@@ -117,91 +125,102 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
             p.copy_(torch.tensor(arr))
 
 
-def load_gan_state(trainer: nn.Module, state) -> None:
-    """Load a JAX ``GanTrainState`` (its ``g_params``, ``ema_g_params``,
-    ``d_params``, ``objd_params``, ``text_params``, ``img_params`` and
-    ``label_table``, as numpy or JAX arrays) into a
-    ``train.gan.GanTrainer``. The optimiser state starts fresh, as in JAX's
-    ``init_state``."""
-    if len(state.d_params) != len(trainer.d_nets):
-        raise ValueError(f"{len(state.d_params)} D param trees for "
-                         f"{len(trainer.d_nets)} DNets")
-    load_jax_params(trainer.g_net, state.g_params)
-    load_jax_params(trainer.ema_g, state.ema_g_params)
-    for dnet, tree in zip(trainer.d_nets, state.d_params):
-        load_jax_params(dnet, tree)
-    load_jax_params(trainer.obj_d, state.objd_params)
-    load_jax_params(trainer.text_enc, state.text_params)
-    load_jax_params(trainer.img_enc, state.img_params)
-    with torch.no_grad():
-        trainer.label_table.copy_(torch.tensor(np.asarray(state.label_table)))
-    trainer.reset_optimizers()
-
-
-def load_damsm_state(trainer: nn.Module, state) -> None:
-    """Load a JAX ``DamsmTrainState`` (``text_params``, ``img_params``,
-    their optimiser states and ``step``) into a
-    ``train.damsm.DamsmTrainer``."""
-    trainer.reset_optimizers()
-    load_jax_params(trainer.text_enc, state.text_params)
-    load_jax_params(trainer.img_enc, state.img_params)
-    _load_adam(trainer.text_enc, trainer.text_opt, state.text_opt)
-    _load_adam(trainer.img_enc, trainer.img_opt, state.img_opt)
-    trainer.step = int(np.asarray(state.step))
-
-
 def _scale_by_adam(opt_state):
     """optax's ScaleByAdamState (``count``, ``mu``, ``nu``) inside a
-    (possibly chained) optimiser state."""
+    (possibly chained or masked) optimiser state."""
     if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
         return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for part in opt_state:
-            found = _scale_by_adam(part)
-            if found is not None:
-                return found
+    parts = (opt_state.values() if isinstance(opt_state, Mapping)
+             else opt_state if isinstance(opt_state, (tuple, list)) else ())
+    for part in parts:
+        found = _scale_by_adam(part)
+        if found is not None:
+            return found
     return None
 
 
-def _load_adam(module: nn.Module, opt: torch.optim.Optimizer,
-               opt_state) -> None:
-    """optax Adam's ``count``, ``mu`` and ``nu`` of ``module``'s params
-    into ``opt``'s state (``step``, ``exp_avg``, ``exp_avg_sq``)."""
+def _adam_entries(prefix: str, opt_state) -> Dict[str, torch.Tensor]:
+    """optax Adam's ``count``, ``mu`` and ``nu`` of the parameters under
+    ``prefix`` as the state-dict entries ``optim.<name>.{step, exp_avg,
+    exp_avg_sq}``."""
     adam = _scale_by_adam(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState in the optimiser state")
-    mu, nu = jax_to_torch(adam.mu), jax_to_torch(adam.nu)
-    count = float(np.asarray(adam.count))
-    names = {p: n for n, p in module.named_parameters()}
-    for group in opt.param_groups:
-        for p in group["params"]:
-            name = names[p]
-            opt.state[p] = {
-                "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": torch.tensor(mu[name]).to(p),
-                "exp_avg_sq": torch.tensor(nu[name]).to(p)}
+    count = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    nu = jax_to_torch(adam.nu)
+    out = {}
+    for name, mu in jax_to_torch(adam.mu).items():
+        key = f"optim.{prefix}{name}."
+        out[key + "step"] = count.clone()
+        out[key + "exp_avg"] = torch.tensor(mu)
+        out[key + "exp_avg_sq"] = torch.tensor(nu[name])
+    return out
 
 
-def load_box_state(trainer: nn.Module, state) -> None:
-    """Load a JAX ``BoxTrainState`` (``params``, the clip+Adam ``opt``
-    state and ``step``) into a ``train.box.BoxTrainer``."""
-    trainer.reset_optimizers()
-    load_jax_params(trainer.model, state.params)
-    _load_adam(trainer.model, trainer.opt, state.opt)
-    trainer.step = int(np.asarray(state.step))
+def _state_parts(trainer: nn.Module, state):
+    """(module prefix, JAX param tree, its optimiser state or None) for each
+    network of ``trainer``'s JAX train state, and its buffers."""
+    from objgan_tpu_torch.train.box import BoxTrainer
+    from objgan_tpu_torch.train.damsm import DamsmTrainer
+    from objgan_tpu_torch.train.gan import GanTrainer
+    from objgan_tpu_torch.train.shape import ShapeTrainer
+
+    if isinstance(trainer, GanTrainer):
+        if len(state.d_params) != len(trainer.d_nets):
+            raise ValueError(f"{len(state.d_params)} D param trees for "
+                             f"{len(trainer.d_nets)} DNets")
+        return ([("g_net.", state.g_params, state.g_opt),
+                 ("ema_g.", state.ema_g_params, None),
+                 ("obj_d.", state.objd_params, state.objd_opt),
+                 ("text_enc.", state.text_params, None),
+                 ("img_enc.", state.img_params, None)]
+                + [(f"d_nets.{i}.", p, o) for i, (p, o) in enumerate(
+                    zip(state.d_params, state.d_opt))],
+                {"label_table": state.label_table})
+    if isinstance(trainer, DamsmTrainer):
+        return ([("text_enc.", state.text_params, state.text_opt),
+                 ("img_enc.", state.img_params, state.img_opt)], {})
+    if isinstance(trainer, BoxTrainer):
+        return [("model.", state.params, state.opt)], {}
+    if isinstance(trainer, ShapeTrainer):
+        parts = [("g.", state.g_params, state.g_opt),
+                 ("d.", state.d_params, state.d_opt)]
+        if trainer.vgg is not None:
+            parts.append(("vgg.", state.vgg_params, None))
+        return parts, {"label_table": state.label_table}
+    raise TypeError(f"no JAX train state for {type(trainer).__name__}")
 
 
-def load_shape_state(trainer: nn.Module, state) -> None:
-    """Load a JAX ``ShapeTrainState`` (``g_params``, ``d_params``, their
-    Adam states, ``label_table``, ``step`` and, in ``vgg`` mode,
-    ``vgg_params``) into a ``train.shape.ShapeTrainer``."""
-    trainer.reset_optimizers()
-    load_jax_params(trainer.g, state.g_params)
-    load_jax_params(trainer.d, state.d_params)
-    if trainer.vgg is not None:
-        load_jax_params(trainer.vgg, state.vgg_params)
-    _load_adam(trainer.g, trainer.g_opt, state.g_opt)
-    _load_adam(trainer.d, trainer.d_opt, state.d_opt)
-    with torch.no_grad():
-        trainer.label_table.copy_(torch.tensor(np.asarray(state.label_table)))
-    trainer.step = int(np.asarray(state.step))
+def jax_state_dict(trainer: nn.Module, state) -> Dict[str, torch.Tensor]:
+    """The JAX train state ``state`` of ``trainer``'s stage as ``trainer``'s
+    own state dict (CPU tensors in the port's layouts), ready for
+    ``trainer.load_state_dict`` once ``core/checkpoint.py::mismatch`` finds
+    nothing. Raises TypeError for a trainer with no JAX counterpart,
+    ValueError for a malformed state."""
+    parts, buffers = _state_parts(trainer, state)
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, params, opt_state in parts:
+        for name, arr in jax_to_torch(params).items():
+            sd[prefix + name] = torch.tensor(arr)
+        if opt_state is not None:
+            sd.update(_adam_entries(prefix, opt_state))
+    for name, arr in buffers.items():
+        sd[name] = torch.from_numpy(np.array(arr))
+    sd["step"] = torch.tensor(int(np.asarray(state.step)), dtype=torch.int64)
+    return sd
+
+
+def load_jax_state(trainer: nn.Module, state) -> None:
+    """Load a JAX train state into the port trainer of its stage: every
+    network, the label table, each optimiser's Adam moments and count, and
+    the step. Raises KeyError or ValueError, loading nothing, when the state
+    does not fit the trainer."""
+    from objgan_tpu_torch.core.checkpoint import mismatch
+
+    sd = jax_state_dict(trainer, state)
+    why = mismatch(trainer.state_dict(), sd)
+    if why is not None:
+        raise KeyError(f"JAX state does not match {type(trainer).__name__}: "
+                       f"{why}")
+    trainer.load_state_dict(sd)
+

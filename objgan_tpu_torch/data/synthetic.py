@@ -72,3 +72,12 @@ def synthetic_batch(cfg: Config, generator: torch.Generator,
         out["images"] = [uniform(-1.0, 1.0, (b, size, size, 3))
                          for size in cfg.branch_sizes]
     return out
+
+
+def synthetic_layout_batch(cfg: Config, generator: torch.Generator,
+                           batch: int = 8) -> Dict[str, torch.Tensor]:
+    """(captions, cap_lens, labels, boxes, obj_valid) for Stage-A training:
+    ``synthetic_batch``'s layout keys, drawn from ``generator``."""
+    d = synthetic_batch(cfg, generator, batch, with_images=False)
+    return {k: d[k] for k in
+            ("captions", "cap_lens", "labels", "boxes", "obj_valid")}

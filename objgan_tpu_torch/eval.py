@@ -25,13 +25,15 @@ from __future__ import annotations
 import argparse
 import sys
 
-_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
+_CHECKPOINTS = ("Evaluates the newest step of TRAIN.NET_G (default "
+                "OUTPUT_DIR/<CONFIG_NAME>_gan/ckpt): the port's state.pt or "
+                "a JAX run's Orbax step.")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="FID / IS / R-precision of the Stage-C generator.",
-        epilog=_LATER)
+        epilog=_CHECKPOINTS)
     ap.add_argument("--cfg", dest="cfg_file", default=None)
     ap.add_argument("--manifest", default=None)
     ap.add_argument("--captions_pickle", default=None)

@@ -22,13 +22,16 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
+_CHECKPOINTS = ("Resumes from, or samples, the newest step under "
+                "OUTPUT_DIR/<CONFIG_NAME>_gan/ckpt (TRAIN.NET_G to sample "
+                "another run): the port's state.pt or a JAX run's Orbax "
+                "step; writes state.pt only.")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="Stage-C GAN: train when TRAIN.FLAG is true, else "
-                    "sample.", epilog=_LATER)
+                    "sample.", epilog=_CHECKPOINTS)
     ap.add_argument("--cfg", dest="cfg_file", default=None,
                     help="reference-style yml config (default: Config())")
     ap.add_argument("--manifest", default=None,

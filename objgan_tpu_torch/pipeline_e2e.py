@@ -7,8 +7,9 @@ on the device, from an explicit ``torch.Generator``; a test hands
 ``generate`` the draws that JAX's key chain made instead.
 
 ``ObjGanPipeline.load_states`` restores each stage from its trainer's newest
-checkpoint (``OUTPUT_DIR/<CONFIG_NAME>_{box,shape,gan}/ckpt``), so training
-stays per stage while inference is composed.
+checkpoint (``OUTPUT_DIR/<CONFIG_NAME>_{box,shape,gan}/ckpt``), the port's
+or the JAX package's (Orbax), so training stays per stage while inference
+is composed.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import os
 import sys
 from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from objgan_tpu_torch.core.config import Config
 from objgan_tpu_torch.core import bridge
-from objgan_tpu_torch.core.checkpoint import load_latest, mismatch
+from objgan_tpu_torch.core.checkpoint import OrbaxNode, load_latest, mismatch
 from objgan_tpu_torch.core.layers import init_weights
 from objgan_tpu_torch.models.box_generator import BoxGenerator
 from objgan_tpu_torch.train import box as box_train
@@ -90,9 +92,14 @@ class ObjGanPipeline(nn.Module):
         (the gan stage from ``TRAIN.NET_G`` when set): ``BoxTrainer``'s
         ``model`` -> ``box``; ``ShapeTrainer``'s ``g`` and ``label_table``
         -> ``shape``; ``GanTrainer``'s EMA generator ``ema_g`` ->
-        ``gan.g_net``, with its ``text_enc`` and ``label_table``. A stage
-        without a checkpoint, or with one that does not fit this config,
-        keeps fresh weights from ``RNG_SEED`` and says so loudly."""
+        ``gan.g_net``, with its ``text_enc`` and ``label_table``. From a
+        JAX (Orbax) step, as the JAX package's ``load_states``:
+        ``BoxTrainState.params`` -> ``box``; ``ShapeTrainState.g_params``
+        and ``label_table`` -> ``shape``; ``GanTrainState.ema_g_params``,
+        ``text_params`` and ``label_table`` -> ``gan`` (the layouts of
+        ``core/bridge.py``). A stage without a checkpoint, or with one that
+        does not fit this config, keeps fresh weights from ``RNG_SEED`` and
+        says so loudly."""
         pipe = cls._drawn(cfg, cfg.RNG_SEED)
         base = output_dir or cfg.OUTPUT_DIR
         # stage: (module, {checkpoint key prefix: module key prefix})
@@ -107,12 +114,18 @@ class ObjGanPipeline(nn.Module):
             if name == "gan" and cfg.TRAIN.NET_G:
                 d = cfg.TRAIN.NET_G
             step, saved = load_latest(d)
-            state = None
-            if saved is not None:
+            state = why = None
+            if isinstance(saved, OrbaxNode):
+                try:
+                    state = _jax_stage_state(name, saved)
+                except (AttributeError, KeyError, ValueError) as e:
+                    why = f"{type(e).__name__}: {e}"
+            elif saved is not None:
                 state = {new + k[len(old):]: v for k, v in saved.items()
                          for old, new in prefixes.items()
                          if k.startswith(old)}
-                why = mismatch(module.state_dict(), state)
+            if saved is not None:
+                why = why or mismatch(module.state_dict(), state)
                 if why is not None:
                     print(f"WARNING: the {name} checkpoint at step {step} "
                           f"under {d} does not fit this config: {why}",
@@ -176,3 +189,26 @@ class ObjGanPipeline(nn.Module):
             "grid_attn": out["grid_attn"],
             "obj_attn": out["obj_attn"],
         }
+
+
+# stage: {its module's state-dict key or prefix: the JAX train state's field}
+_JAX_FIELDS = {
+    "box": {"": "params"},
+    "shape": {"g.": "g_params", "label_table": "label_table"},
+    "gan": {"g_net.": "ema_g_params", "text_enc.": "text_params",
+            "label_table": "label_table"},
+}
+
+
+def _jax_stage_state(name: str, state) -> Dict[str, torch.Tensor]:
+    """A stage's weights in a JAX train state (a tree of
+    ``core/checkpoint.py::read_orbax``) as the stage module's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, field in _JAX_FIELDS[name].items():
+        value = getattr(state, field)
+        if field == "label_table":
+            out[key] = torch.tensor(np.asarray(value))
+        else:
+            out.update({key + k: torch.tensor(v) for k, v in
+                        bridge.jax_to_torch(value).items()})
+    return out

@@ -22,12 +22,14 @@ from __future__ import annotations
 
 import argparse
 
-_LATER = "Not ported yet (ROADMAP.md): loading a JAX (Orbax) checkpoint."
+_CHECKPOINTS = ("Resumes from, or evaluates, the newest step under OUTPUT_DIR/"
+                "<CONFIG_NAME>_shape/ckpt: the port's state.pt or a JAX run's "
+                "Orbax step; writes state.pt only.")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Stage B: boxes -> masks.",
-                                 epilog=_LATER)
+                                 epilog=_CHECKPOINTS)
     ap.add_argument("--cfg", dest="cfg_file", default=None)
     ap.add_argument("--manifest", default=None)
     ap.add_argument("--wire", action="store_true",

@@ -69,7 +69,7 @@ def sample(model: BoxGenerator, captions: torch.Tensor,
 class BoxTrainer(Trainer):
     """The box generator ``model``, its optimiser and the step.
     ``init_state(generator)`` draws fresh weights (on the CPU, then move
-    the trainer); ``core.bridge.load_box_state`` loads a JAX state."""
+    the trainer); ``core.bridge.load_jax_state`` loads a JAX state."""
 
     def __init__(self, cfg: Config):
         super().__init__()

@@ -7,13 +7,26 @@ card) and of the original on the CPU (the twins), and reports how far the
 two lie apart: the largest relative metric error and the largest relative
 norm error of a parameter's gradient. ``chip_smoke.py`` and the card tests
 both hold the step to it.
+
+``restored(stage, output_dir, goldens, device)`` restores the tiny fp32
+trainer of ``stage`` ("gan", "damsm", "box" or "shape") from the JAX
+package's Orbax step under ``output_dir/objgan_<stage>/ckpt``
+(``tests/make_orbax_fixtures.py`` writes it) through
+``CheckpointManager.restore_latest``, with the batch of the stage's seed
+and JAX's noise from ``goldens`` (``tests/data/orbax_goldens.npz``).
+``restored_step`` takes one train step there and ``golden_errors``
+measures it against JAX's; ``restored_grads_on_card`` holds a ``grads``
+call on the card to the CPU's, as ``tiny_step_on_card`` does.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict
+import hashlib
+import zlib
+from typing import Dict, Mapping
 
+import numpy as np
 import torch
 
 from objgan_tpu_torch.core.config import tiny_test_config
@@ -79,6 +92,10 @@ def tiny_step_on_card(stage: str, device="cuda") -> Dict[str, object]:
     got_g, got_m = card.grads(*[_to(a, device) for a in args])
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+    return _errors(want_g, want_m, got_g, got_m)
+
+
+def _errors(want_g, want_m, got_g, got_m) -> Dict[str, object]:
     metric_err = max(_relative(float(got_m[k]), float(v))
                      for k, v in want_m.items())
     grad_err, worst = 0.0, ""
@@ -88,3 +105,152 @@ def tiny_step_on_card(stage: str, device="cuda") -> Dict[str, object]:
             grad_err, worst = e, k
     return {"metric_err": metric_err, "grad_err": grad_err, "worst": worst,
             "metrics": len(want_m), "grads": len(want_g)}
+
+
+# the synthetic batch of each stage's restored step (torch's CPU generator)
+ORBAX_SEEDS = {"gan": 11, "damsm": 12, "box": 13, "shape": 14}
+GOLDEN_HEAD = 4  # leading values of each state tensor the goldens keep
+GOLDEN_PROJECTIONS = 4  # seeded normal vectors each tensor is projected on
+# a state tensor after a restored step against JAX's: within STATE_ATOL
+# element by element, as the Stage A/B tests hold two steps, or within
+# STATE_RTOL of its stage relative in norm. Stage C: its gradients are
+# held to 1e-3 relative in norm (tests/test_torch_train.py) and Adam's
+# second moment squares them (its G moments reach ~700 on the tiled
+# fixture, where no 1e-5 holds)
+STATE_ATOL = 1e-5
+STATE_RTOL = {"gan": 2e-3, "damsm": 1e-4, "box": 1e-4, "shape": 1e-4}
+
+
+def batch_digest(batch: Mapping) -> str:
+    """sha256 of a batch's arrays in key order."""
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        for x in batch[k] if isinstance(batch[k], list) else [batch[k]]:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(x.cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def projection_vectors(key: str, n: int) -> np.ndarray:
+    """The GOLDEN_PROJECTIONS seeded normal vectors of length ``n`` the
+    goldens project the state tensor ``key`` on."""
+    return np.random.default_rng(zlib.crc32(key.encode())).standard_normal(
+        (GOLDEN_PROJECTIONS, n))
+
+
+def state_summary(sd: Mapping[str, torch.Tensor]):
+    """(keys, first GOLDEN_HEAD values, L2 norms, projections) of the float
+    entries of a trainer's state dict, Adam's step counts left out."""
+    keys = sorted(k for k, v in sd.items()
+                  if v.is_floating_point() and not k.endswith(".step"))
+    head = np.full((len(keys), GOLDEN_HEAD), np.nan, np.float32)
+    norm = np.zeros(len(keys))
+    proj = np.zeros((len(keys), GOLDEN_PROJECTIONS))
+    for i, k in enumerate(keys):
+        x = sd[k].detach().cpu().double().reshape(-1).numpy()
+        head[i, :min(GOLDEN_HEAD, x.size)] = x[:GOLDEN_HEAD]
+        norm[i] = np.linalg.norm(x)
+        proj[i] = projection_vectors(k, x.size) @ x
+    return np.array(keys), head, norm, proj
+
+
+def _orbax_trainer(stage: str, cfg):
+    from objgan_tpu_torch.train.box import BoxTrainer
+    from objgan_tpu_torch.train.damsm import DamsmTrainer
+    from objgan_tpu_torch.train.gan import GanTrainer
+    from objgan_tpu_torch.train.shape import ShapeTrainer
+
+    return {"gan": GanTrainer, "damsm": DamsmTrainer, "box": BoxTrainer,
+            "shape": ShapeTrainer}[stage](cfg)
+
+
+def restored(stage: str, output_dir: str, goldens: Mapping, device="cpu"):
+    """(trainer, step arguments, restored step): the tiny fp32 ``stage``
+    trainer restored from its Orbax step on ``device``, and the batch of
+    the stage's seed with JAX's noise there, as ``train_step`` and
+    ``grads`` take them. Raises when the stage's seed draws another batch
+    than the goldens were made on."""
+    import os
+
+    from objgan_tpu_torch.core.checkpoint import CheckpointManager
+
+    cfg = tiny_test_config().merged({"DTYPE": "float32"})
+    # on the device first: the restore puts the Adam moments beside their
+    # parameters, and moving the trainer later would leave them behind
+    trainer = _orbax_trainer(stage, cfg).to(device)
+    ckpt = os.path.join(output_dir, f"{cfg.CONFIG_NAME}_{stage}", "ckpt")
+    step = CheckpointManager(ckpt).restore_latest(trainer)
+    if step is None:
+        raise RuntimeError(f"no {stage} step restored from {ckpt}")
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(
+        ORBAX_SEEDS[stage]), with_images=stage in ("gan", "damsm"))
+    if batch_digest(batch) != str(goldens[f"{stage}.batch_sha256"]):
+        raise RuntimeError(f"the {stage} seed drew another batch than the "
+                           "goldens were made on (torch's CPU generator "
+                           "changed?)")
+    noise = {k.rsplit(".", 1)[-1]: torch.from_numpy(np.array(goldens[k]))
+             for k in goldens if k.startswith(f"{stage}.noise.")}
+    batch, noise = _to(batch, device), _to(noise, device)
+    args = {"gan": lambda: (batch, noise["z"], noise["ca_eps"]),
+            "shape": lambda: (batch, noise["z"]),
+            "damsm": lambda: (batch, noise["keep_mask"]),
+            "box": lambda: (batch,)}[stage]()
+    return trainer, args, step
+
+
+def restored_step(stage: str, output_dir: str, goldens: Mapping,
+                  device="cpu"):
+    """(trainer after the step, its metrics as floats, the restored step):
+    ``restored``'s trainer after one train step."""
+    trainer, args, step = restored(stage, output_dir, goldens, device)
+    metrics = trainer.train_step(*args)
+    return trainer, {k: float(v) for k, v in metrics.items()}, step
+
+
+def restored_grads_on_card(stage: str, output_dir: str, goldens: Mapping,
+                           device="cuda") -> Dict[str, object]:
+    """``tiny_step_on_card``'s errors, on the restored state: one ``grads``
+    call of ``restored``'s trainer on ``device`` against the CPU's."""
+    card, args, _ = restored(stage, output_dir, goldens, device)
+    cpu, cpu_args, _ = restored(stage, output_dir, goldens, "cpu")
+    want_g, want_m = cpu.grads(*cpu_args)
+    got_g, got_m = card.grads(*args)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return _errors(want_g, want_m, got_g, got_m)
+
+
+def golden_errors(stage: str, trainer, metrics: Mapping[str, float],
+                  goldens: Mapping) -> Dict[str, object]:
+    """How far a step of ``restored_step`` lies from JAX's, read from the
+    goldens (the card's host has no JAX to take the step). ``metric_err``:
+    the largest relative metric error. ``state_score``: the largest, over
+    the float state tensors after the step, of the estimated L2 norm of its
+    error over its limit, max(STATE_ATOL, STATE_RTOL · ||JAX's tensor||).
+    The estimate is the largest of the norms' difference and the leading
+    values' error norm (each at most the error's norm) and the root mean
+    square of the errors of the GOLDEN_PROJECTIONS projections, whose
+    square has the error's squared norm as its expectation. No element
+    errs by more than the norm, so a score of at most 1 says each tensor
+    lies within STATE_ATOL of JAX's element by element or within its
+    stage's STATE_RTOL in norm, up to the estimate's spread.
+    ``worst`` names its tensor; ``step_ok`` says the step equals JAX's."""
+    want_m = {k.split(".", 2)[2]: float(goldens[k]) for k in goldens
+              if k.startswith(f"{stage}.metric.")}
+    metric_err = max(_relative(metrics[k], w) for k, w in want_m.items())
+    keys, head, norm, proj = state_summary(trainer.state_dict())
+    if list(keys) != list(goldens[f"{stage}.keys"]):
+        raise RuntimeError(f"{stage}: state entries differ from the goldens'")
+    score, worst = 0.0, ""
+    for i, k in enumerate(keys):
+        dh = head[i] - goldens[f"{stage}.head"][i]
+        dp = proj[i] - goldens[f"{stage}.projection"][i]
+        want_norm = float(goldens[f"{stage}.norm"][i])
+        err = max(float(np.linalg.norm(dh[~np.isnan(dh)])),
+                  float(np.sqrt(np.mean(dp * dp))), abs(norm[i] - want_norm))
+        e = err / max(STATE_ATOL, STATE_RTOL[stage] * want_norm)
+        if e > score:
+            score, worst = e, k
+    return {"metric_err": metric_err, "state_score": score, "worst": worst,
+            "metrics": len(want_m), "tensors": len(keys),
+            "step_ok": trainer.step == int(goldens[f"{stage}.step"])}

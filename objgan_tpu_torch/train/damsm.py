@@ -31,7 +31,7 @@ from objgan_tpu_torch.train.common import Trainer, adam, clip_by_global_norm_
 class DamsmTrainer(Trainer):
     """The DAMSM text encoder ``text_enc``, image encoder ``img_enc``, their
     optimisers and the step. ``init_state(generator)`` draws fresh weights
-    (on the CPU, then move the trainer); ``core.bridge.load_damsm_state``
+    (on the CPU, then move the trainer); ``core.bridge.load_jax_state``
     loads a JAX state instead."""
 
     def __init__(self, cfg: Config):

@@ -118,7 +118,7 @@ class GanTrainer(Trainer):
 
     ``init_state(generator)`` draws fresh weights (call it on the CPU, then
     move the trainer to its device: a seed gives the same weights on every
-    device); ``core.bridge.load_gan_state`` loads a JAX state instead.
+    device); ``core.bridge.load_jax_state`` loads a JAX state instead.
     ``train_step(batch, z, ca_eps)`` takes one step and returns its metrics
     as 0-d tensors under the JAX package's names."""
 

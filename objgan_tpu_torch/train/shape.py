@@ -76,7 +76,7 @@ def sample(state, boxes: torch.Tensor, labels: torch.Tensor,
 class ShapeTrainer(Trainer):
     """G, D, the frozen label table, their optimisers and the step.
     ``init_state(generator)`` draws fresh weights (on the CPU, then move
-    the trainer); ``core.bridge.load_shape_state`` loads a JAX state."""
+    the trainer); ``core.bridge.load_jax_state`` loads a JAX state."""
 
     def __init__(self, cfg: Config):
         super().__init__()

@@ -165,6 +165,11 @@ def save_npz_atomic(cache_path: str, **arrays) -> None:
     os.replace(tmp_path, cache_path)
 
 
+def save_stats_atomic(cache_path: str, mu, cov) -> None:
+    """``save_npz_atomic`` of an FID statistics pair (``mu``, ``cov``)."""
+    save_npz_atomic(cache_path, mu=mu, cov=cov)
+
+
 def unique_epoch_batches(feed, n_unique: int):
     """Stream exactly ``n_unique`` (finest-scale images, primary labels)
     pairs from a feed, one batch at a time: every unique image once. The

@@ -1,6 +1,6 @@
 """Stage A in the port against the JAX package, at the tiny fp32 config:
 the same numpy inputs, JAX's noise injected and JAX's states carried
-across by ``core.bridge.load_box_state``.
+across by ``core.bridge.load_jax_state``.
 
 * ``ops/gmm.py``: ``log_prob``, ``nll`` and ``mean`` in both covariance
   modes, atol 1e-5.
@@ -83,7 +83,7 @@ def jax_box():
 
 def _trainer(jax_box, **over):
     trainer = BoxTrainer(port_cfg(jax_box["cfg"]).merged(over))
-    bridge.load_box_state(trainer, jax_box["state"])
+    bridge.load_jax_state(trainer, jax_box["state"])
     return trainer
 
 
@@ -266,7 +266,7 @@ def test_box_two_steps_match_jax(jax_box):
 
 def test_load_box_state_carries_adam_moments(jax_box):
     trainer = BoxTrainer(port_cfg(jax_box["cfg"]))
-    bridge.load_box_state(trainer, jax_box["final"])
+    bridge.load_jax_state(trainer, jax_box["final"])
     sd = trainer.state_dict()
     adam = bridge._scale_by_adam(jax_box["final"].opt)
     for k, v in bridge.jax_to_torch(adam.nu).items():
@@ -312,7 +312,7 @@ def test_box_eval_matches_jax(jax_box):
     batches = jax_box["batches"]
     rng = jax.random.PRNGKey(5)
     trainer = BoxTrainer(port_cfg(cfg))
-    bridge.load_box_state(trainer, jax_box["final"])
+    bridge.load_jax_state(trainer, jax_box["final"])
     pb = [_port_batch(b) for b in batches]
     want = jbox_eval.heldout_nll(jt, state, batches)
     got = box_eval.heldout_nll(trainer, pb)
@@ -345,7 +345,7 @@ def test_sample_box_matches_jax_cli(jax_box, tmp_path):
                                                     with_images=False))
     pcfg = port_cfg(cfg).merged({"OUTPUT_DIR": str(tmp_path / "port")})
     trainer = BoxTrainer(pcfg)
-    bridge.load_box_state(trainer, to_numpy_tree(state))
+    bridge.load_jax_state(trainer, to_numpy_tree(state))
     CheckpointManager(str(tmp_path / "port" / "objgan_box" / "ckpt")).save(
         0, trainer)
     noise = {k: v[:, :3] for k, v in replay_box_noise(cfg, rng, 4).items()}

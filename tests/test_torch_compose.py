@@ -18,7 +18,7 @@ served from the port's checkpoints, and the port's new entry points.
 * ``box_train``, ``box_sample``, ``shape_main`` and ``sample_pipeline`` run
   in subprocesses that import neither JAX nor the JAX package. ``--wire``
   is no longer refused (the wire feed is ported, ``tests/test_torch_wire.py``
-  runs it): the only refusal their help names is a JAX (Orbax) checkpoint.
+  runs it), nor is a JAX (Orbax) checkpoint: their help says they read one.
 """
 
 import csv
@@ -80,16 +80,13 @@ def trained(tmp_path_factory):
     layouts = [{k: v for k, v in x.items() if k != "images"}
                for x in batches]
     trained_states = {}
-    for name, jt, port, load in (
-            ("box", JBoxTrainer(cfg), BoxTrainer(pcfg),
-             bridge.load_box_state),
-            ("shape", JShapeTrainer(cfg), ShapeTrainer(pcfg),
-             bridge.load_shape_state),
-            ("gan", JGanTrainer(cfg), GanTrainer(pcfg),
-             bridge.load_gan_state)):
+    for name, jt, port in (
+            ("box", JBoxTrainer(cfg), BoxTrainer(pcfg)),
+            ("shape", JShapeTrainer(cfg), ShapeTrainer(pcfg)),
+            ("gan", JGanTrainer(cfg), GanTrainer(pcfg))):
         feed = layouts if name != "gan" else batches
         state = jax.jit(jt.init_state)(jax.random.PRNGKey(0), feed[0])
-        load(port, jax.device_get(state))
+        bridge.load_jax_state(port, jax.device_get(state))
         step = jax.jit(jt.train_step)
         for batch, key in zip(feed, keys):
             if name == "box":
@@ -393,8 +390,9 @@ def test_entry_point_runs_without_jax(tmp_path, name):
 @pytest.mark.parametrize("module", ["box_train", "box_sample",
                                     "shape_main"])
 def test_wire_is_refused(module, capsys):
-    """``--wire`` is accepted now; what is still refused is loading a JAX
-    (Orbax) checkpoint, which the help's epilog names."""
+    """``--wire`` is accepted now, and nothing is refused: the help's
+    epilog says the stage resumes from the port's step or a JAX run's Orbax
+    step, and writes the port's only."""
     import importlib
 
     main = importlib.import_module(f"objgan_tpu_torch.{module}").main
@@ -404,7 +402,9 @@ def test_wire_is_refused(module, capsys):
     out = capsys.readouterr().out
     assert "compact uint8 wire batches" in out
     assert "refused" not in out and "wire feed" not in out
-    assert "ROADMAP.md" in out and "Orbax" in out
+    assert "ROADMAP.md" not in out and "Not ported" not in out
+    words = " ".join(out.split())
+    assert "JAX run's Orbax step" in words and "writes state.pt only" in words
 
 
 def test_box_sample_eval_and_shape_eval_run_on_cpu(tmp_path, capsys):

@@ -3,7 +3,8 @@
 DAMSM step and a Stage-B step give it and under autograd (with a tiny
 Stage-B step on the card against the CPU), K2 and K3
 (objgan_tpu_torch/csrc/roi_align.cu) at the train step's shapes and under
-autograd. Card-only: marked ``cuda`` and
+autograd, and all three with every input ending at an unmapped page
+(``tools/guard_pages.py``). Card-only: marked ``cuda`` and
 skipped without a CUDA device. This file imports neither JAX nor the
 parity helpers, so on a GPU host it runs as
 
@@ -479,3 +480,31 @@ def test_device_profile_sees_the_kernels(dev):
     assert 0 < busy <= wall
     assert busy == profiling.busy_ms(spans)
     assert sum("gn_fused_kernel" in name for *_, name in spans) == 5
+
+
+def test_kernels_read_nothing_past_their_inputs(dev):
+    """K1 (both plans, the ring, the scalar paths), K2 and K3 with every
+    input ending at an unmapped page (``tools/guard_pages.py``), each
+    against its twin, in a process of its own (a fault poisons the CUDA
+    context); and its control: a plain read one element past a guarded
+    tensor faults."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert lines[-1].endswith("PASS"), lines[-5:]
+    regimes = {ln.split(": ", 1)[1].split(" cluster")[0] for ln in lines
+               if ln.startswith("PASS K1")}
+    assert regimes == {"resident", "streaming"}
+    assert any(ln.startswith("PASS K2") for ln in lines)
+    assert any(ln.startswith("PASS K3") for ln in lines)
+    control = subprocess.run(cmd + ["--control"], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+    assert control.returncode != 0
+    assert "illegal memory access" in control.stderr

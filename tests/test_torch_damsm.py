@@ -108,7 +108,7 @@ def jax_damsm():
 
 def _port_trainer(state):
     trainer = DamsmTrainer(ttiny("float32"))
-    bridge.load_damsm_state(trainer, state)
+    bridge.load_jax_state(trainer, state)
     return trainer
 
 

@@ -29,11 +29,13 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # a subprocess that imported any of these broke the port's rule (Grain is
-# not on the card's host: the worker feed is the port's own)
+# not on the card's host: the worker feed is the port's own; nor are
+# tensorstore, zstandard and ml_dtypes: the port reads Orbax steps itself)
 FORBIDDEN_MODULES = (
-    "bad = [m for m in sys.modules if m in ('jax', 'objgan_tpu', 'grain') "
+    "bad = [m for m in sys.modules if m in ('jax', 'objgan_tpu', 'grain', "
+    "'tensorstore', 'zstandard', 'ml_dtypes') "
     "or m.startswith(('jax.', 'flax', 'optax', 'orbax', 'objgan_tpu.', "
-    "'grain.'))]\n"
+    "'grain.', 'tensorstore.', 'zstandard.', 'ml_dtypes.'))]\n"
     "assert not bad, bad\n")
 
 CAPS = ["Two dogs play in the PARK.", "a man riding a wave on a surfboard",

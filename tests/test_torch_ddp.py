@@ -82,7 +82,7 @@ def _jax_gan():
     noise = [t(jax.random.normal(k_z, (b, cfg.GAN.Z_DIM))),
              t(jax.random.normal(k_ca, (b, cfg.GAN.CONDITION_DIM)))]
     trainer = GanTrainer(ttiny("float32"))
-    bridge.load_gan_state(trainer, jax.device_get(state))
+    bridge.load_jax_state(trainer, jax.device_get(state))
     return {"state": trainer.state_dict(), "noise": noise,
             "batch": {k: ([t(x) for x in v] if isinstance(v, list)
                           else t(v)) for k, v in batch.items()},
@@ -105,7 +105,7 @@ def _jax_damsm():
         jt.loss, argnums=(0, 1), has_aux=True))(
         state.text_params, state.img_params, batch, key)
     trainer = DamsmTrainer(ttiny("float32"))
-    bridge.load_damsm_state(trainer, jax.device_get(state))
+    bridge.load_jax_state(trainer, jax.device_get(state))
     return {"state": trainer.state_dict(), "mask": mask,
             "batch": {k: ([t(x) for x in v] if isinstance(v, list)
                           else t(v)) for k, v in batch.items()},

@@ -5,8 +5,8 @@ fp32 config (``gan/eval.py`` and ``objgan_tpu_torch.eval``).
   original on fixed inputs (the probe bitwise, retrieval ties in JAX's
   order).
 * ``utils/fid_runner.py``'s host helpers equal JAX's (``primary_labels``,
-  ``unique_epoch_batches``); the real-stats cache key differs from JAX's
-  for the same manifest and mode.
+  ``unique_epoch_batches``, ``save_stats_atomic``); the real-stats cache
+  key differs from JAX's for the same manifest and mode.
 * The lite extractor and the image encoder with JAX's weights carried
   across: features within 1e-5.
 * The frozen extractor on ``assets/frozen_lite.npz``: JAX's features within
@@ -141,6 +141,22 @@ def test_primary_labels_and_unique_epoch_batches_match_jax():
     for (gi, gl), (wi, wl) in zip(got, want):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gl, wl)
+
+
+def test_save_stats_atomic_round_trips_like_jax(tmp_path):
+    """``save_stats_atomic`` writes what JAX's writes (``mu``, ``cov``),
+    in place of an older file, and leaves no temporary file behind."""
+    r = np.random.default_rng(0)
+    mu, cov = r.normal(size=8), r.normal(size=(8, 8))
+    got, want = tmp_path / "port.npz", tmp_path / "jax.npz"
+    got.write_bytes(b"an older, truncated cache")
+    tfid.save_stats_atomic(str(got), mu, cov)
+    jfid.save_stats_atomic(str(want), mu, cov)
+    with np.load(got) as g, np.load(want) as w:
+        assert sorted(g.files) == sorted(w.files) == ["cov", "mu"]
+        for k in ("mu", "cov"):
+            np.testing.assert_array_equal(g[k], w[k])
+    assert sorted(os.listdir(tmp_path)) == ["jax.npz", "port.npz"]
 
 
 def test_real_stats_cache_key_differs_from_jax(tmp_path):
@@ -348,7 +364,7 @@ def test_evaluate_matches_gan_eval(tmp_path, monkeypatch, jax_lite, manifest,
 
     pcfg = port_cfg(cfg).merged({"OUTPUT_DIR": str(tmp_path)})
     trainer = GanTrainer(pcfg)
-    bridge.load_gan_state(trainer, jax.device_get(state))
+    bridge.load_jax_state(trainer, jax.device_get(state))
     CheckpointManager(str(tmp_path / "objgan_gan" / "ckpt")).save(3, trainer)
     make_lite = tfid.make_lite_extractor
 

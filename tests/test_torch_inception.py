@@ -128,7 +128,7 @@ def test_damsm_step_with_the_inception_backbone_matches_jax():
 
     trainer = DamsmTrainer(port_cfg(cfg))
     assert isinstance(trainer.img_enc, InceptionEncoder)
-    bridge.load_damsm_state(trainer, state)
+    bridge.load_jax_state(trainer, state)
     batch_t = {k: ([t(x) for x in v] if isinstance(v, list) else t(v))
                for k, v in batch.items()}
     keep = _jax_keep_mask(jt, state.text_params, batch, jax.random.PRNGKey(5))

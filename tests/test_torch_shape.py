@@ -1,6 +1,6 @@
 """Stage B in the port against the JAX package, at the tiny fp32 config:
 the same numpy inputs, JAX's noise injected and JAX's states carried
-across by ``core.bridge.load_shape_state``.
+across by ``core.bridge.load_jax_state``.
 
 * ``ShapeDiscriminator``: logits and the three trunk features, atol 1e-5.
 * ``shape_d_loss`` and ``shape_g_loss`` on the same logits, features and
@@ -79,7 +79,7 @@ def jax_shape():
 
 def _trainer(jax_shape, state=None):
     trainer = ShapeTrainer(port_cfg(jax_shape["cfg"]))
-    bridge.load_shape_state(trainer, state or jax_shape["state"])
+    bridge.load_jax_state(trainer, state or jax_shape["state"])
     return trainer
 
 

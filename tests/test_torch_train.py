@@ -175,6 +175,30 @@ def test_kl_loss():
         n(j_kl_loss(jnp.asarray(mu), jnp.asarray(logvar))), **TOL)
 
 
+def test_synthetic_layout_batch_matches_jax():
+    """``synthetic_layout_batch``: JAX's five layout keys, with their
+    shapes, dtypes and value ranges, drawn from an explicit generator."""
+    want = jsyn.synthetic_layout_batch(tiny(), jax.random.PRNGKey(0),
+                                       batch=5)
+    gen = torch.Generator().manual_seed(3)
+    got = tsyn.synthetic_layout_batch(ttiny(), gen, batch=5)
+    assert list(got) == list(want) == ["captions", "cap_lens", "labels",
+                                       "boxes", "obj_valid"]
+    for k, w in want.items():
+        assert tuple(got[k].shape) == w.shape, k
+        assert n(got[k]).dtype == np.asarray(w).dtype, k
+    cfg = ttiny()
+    lens = n(got["cap_lens"])
+    assert (3 <= lens).all() and (lens <= cfg.TEXT.WORDS_NUM).all()
+    caps = n(got["captions"])
+    assert (caps < cfg.TEXT.VOCAB_SIZE).all() and (caps >= 0).all()
+    boxes = n(got["boxes"])
+    assert (boxes[..., :2] >= 0).all() and (boxes[..., :2] < 0.7).all()
+    again = tsyn.synthetic_layout_batch(
+        ttiny(), torch.Generator().manual_seed(3), batch=5)
+    assert all(torch.equal(again[k], got[k]) for k in got)
+
+
 def test_synthetic_batch_matches_jax_layout():
     """The same keys, shapes, dtypes and value ranges as the JAX feed."""
     cfg = tiny()
@@ -279,7 +303,7 @@ def port_step(request, jax_step):
     REMAT none is the reference for both settings."""
     cfg = ttiny("float32", GAN={"REMAT": request.param})
     trainer = GanTrainer(cfg)
-    bridge.load_gan_state(trainer, jax_step["state"])
+    bridge.load_jax_state(trainer, jax_step["state"])
     grads, metrics = trainer.grads(_port_batch(jax_step["batch"]),
                                    *jax_step["noise"])
     return grads, metrics
@@ -311,7 +335,7 @@ def test_step_gradients_match_jax(jax_step, port_step):
 def test_load_gan_state_copies_every_network(jax_step):
     trainer = GanTrainer(ttiny("float32"))
     state = jax_step["state"]
-    bridge.load_gan_state(trainer, state)
+    bridge.load_jax_state(trainer, state)
     sd = {k: v.numpy() for k, v in trainer.state_dict().items()}
     for prefix, tree in [("g_net.", state.g_params),
                          ("ema_g.", state.ema_g_params),
@@ -324,7 +348,7 @@ def test_load_gan_state_copies_every_network(jax_step):
     np.testing.assert_array_equal(sd["label_table"], state.label_table)
     assert trainer.step == 0
     with pytest.raises(ValueError, match="D param trees"):
-        bridge.load_gan_state(trainer, dataclasses.replace(
+        bridge.load_jax_state(trainer, dataclasses.replace(
             state, d_params=state.d_params[:2]))
 
 

@@ -124,7 +124,7 @@ def test_shape_step_in_vgg_mode_matches_jax():
     assert "shape_perceptual" in aux
 
     trainer = ShapeTrainer(port_cfg(cfg))
-    bridge.load_shape_state(trainer, state)
+    bridge.load_jax_state(trainer, state)
     z = replay_shape_z(cfg, key, batch["labels"].shape[0])
     grads, metrics = trainer.grads({k: t(v) for k, v in batch.items()}, z)
     assert set(metrics) == set(aux)

@@ -88,7 +88,7 @@ def test_damsm_step_on_a_wire_batch_matches_jax(manifest):
     stepped, metrics = jax.jit(jt.train_step)(state, batch, key)
 
     trainer = DamsmTrainer(port_cfg(cfg))
-    bridge.load_damsm_state(trainer, to_numpy_tree(state))
+    bridge.load_jax_state(trainer, to_numpy_tree(state))
     grads, got = trainer.grads(_on_cpu(batch), mask)
     for k, w in aux.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=1e-5,
@@ -104,7 +104,7 @@ def test_damsm_step_on_a_wire_batch_matches_jax(manifest):
         assert np.abs(n(grads[k]) - w).max() <= 1e-4 * scale + 1e-6, k
 
     trainer = DamsmTrainer(port_cfg(cfg))
-    bridge.load_damsm_state(trainer, to_numpy_tree(state))
+    bridge.load_jax_state(trainer, to_numpy_tree(state))
     got = trainer.train_step(_on_cpu(batch), mask)
     for k, w in metrics.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=1e-4,
@@ -133,7 +133,7 @@ def test_shape_step_on_a_wire_batch_matches_jax(manifest):
     z = replay_shape_z(cfg, key, batch["labels"].shape[0])
 
     trainer = ShapeTrainer(port_cfg(cfg))
-    bridge.load_shape_state(trainer, to_numpy_tree(state))
+    bridge.load_jax_state(trainer, to_numpy_tree(state))
     grads, got = trainer.grads(_on_cpu(batch), z)
     for k, w in aux.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=2e-5,
@@ -148,7 +148,7 @@ def test_shape_step_on_a_wire_batch_matches_jax(manifest):
         assert np.abs(n(grads[k]) - w).max() <= 2e-5 * scale, k
 
     trainer = ShapeTrainer(port_cfg(cfg))
-    bridge.load_shape_state(trainer, to_numpy_tree(state))
+    bridge.load_jax_state(trainer, to_numpy_tree(state))
     got = trainer.train_step(_on_cpu(batch), z)
     for k, w in metrics.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=2e-5,
