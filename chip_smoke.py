@@ -164,13 +164,30 @@ and strict); and checks every hand-written kernel on them:
                 ``coco_objgan`` width (finite, the ranks' parameters
                 bitwise equal, K1-K3 at phase 6's counts), ms per step at
                 world sizes 1 and 2 side by side;
-27. native      the feed's C++ polygon fill (``native/rasterize.cc``,
+27. multi_step  ``TRAIN.STEPS_PER_EXECUTION`` = 4: each trainer at full
+                width (Stage C at ``coco_objgan``, DAMSM at ``damsm_coco``,
+                Stage A at ``Config()``, Stage B at ``shape_coco``) takes
+                4 steps as one CUDA-graph replay, from the state, batches
+                and noise from which 4 eager steps (the same capturable
+                Adam) are taken, and from which K = 1's Adam takes them:
+                equal to the bit or within the limits of phase orbax;
+                ms per step eager and replayed, the device's busy share
+                under torch.profiler, the peak memory, and the graph's
+                kernel nodes of K1, K2 and K3 (4 x one step's launches,
+                named in the graph's DOT print, as many as the wrappers
+                counted during the capture); ``gan_main`` on the manifest
+                with K = 4 to step 10 (two executions and the ragged
+                tail's two steps: the JAX loop's checkpoints, grids and
+                rows), resumed to 14; ``gan_main`` as one NCCL rank under
+                torchrun with K = 4; K > 1 under gloo on the card and a
+                trainer restored after its capture refused;
+28. native      the feed's C++ polygon fill (``native/rasterize.cc``,
                 built by g++) against its numpy plain version, bitwise, on
                 every polygon of the manifest, both timed; a Stage-B batch
                 (16 x 10 objects, ``shape_coco``) and an eval batch (16,
                 ``eval_coco``) fed with each fill: bitwise equal, host ms
                 per batch of each;
-28. lineage     random lineage ``.pth`` state dicts at full width through
+29. lineage     random lineage ``.pth`` state dicts at full width through
                 the port's tools: ``convert_damsm`` of a text_encoder.pth
                 and an inception image_encoder.pth (``damsm_coco``) into
                 ``cli.train_gan`` at ``coco_objgan`` width with
@@ -180,13 +197,13 @@ and strict); and checks every hand-written kernel on them:
                 ``cli.sample_gan`` with ``TRAIN.NET_G`` (one batch);
                 ``export_damsm`` and ``convert_damsm`` of the export, the
                 same encoders bitwise;
-29. breakdown   ``utils/breakdown.py`` with ``analyze=True``: Stage-C
+30. breakdown   ``utils/breakdown.py`` with ``analyze=True``: Stage-C
                 sampling at ``eval_coco`` width on a manifest batch and the
                 train step at ``coco_objgan`` width, every key printed;
                 each stage once first: finite, K1 once per GroupNorm call
                 (and so in exactly the stages that normalise), K2 3 times
                 in each train part, K3 in both gradients;
-30. orbax       steps the JAX package wrote with Orbax
+31. orbax       steps the JAX package wrote with Orbax
                 (``tests/data/orbax_fixtures.tar.xz``, no JAX here): the
                 full-width ``GanTrainState`` at ``cfg/coco_objgan.yml``
                 decoded by the port's reader (libzstd's version, ms, MB)
@@ -202,19 +219,19 @@ and strict); and checks every hand-written kernel on them:
                 card and on the CPU, against each other and JAX's step
                 (``tests/data/orbax_goldens.npz``); ``run_serve`` composed
                 from the tiny box, shape and gan steps, 2 requests;
-31. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
+32. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
                 subprocess: exit 0, a PASS line for each of K2 + K3 (fp32,
                 bf16) and K1 (fp32, bf16, each with and without GLU); again
                 under ``compute-sanitizer --tool memcheck`` at ``--c 64
                 --o 4``, every tensor its own allocation, 0 errors, where
                 the toolkit has the sanitizer (else the phase says so);
-32. guard_pages ``python -m objgan_tpu_torch.tools.guard_pages`` in a
+33. guard_pages ``python -m objgan_tpu_torch.tools.guard_pages`` in a
                 subprocess: K1 (resident and streaming plans, the ring,
                 the cluster sizes, the scalar paths), K2 and K3 with every
                 input ending at an unmapped page, each against its twin;
                 and its control, one float read past a guarded tensor,
                 which must die of an illegal address;
-33. processes   no process that the smoke started is left: the worker
+34. processes   no process that the smoke started is left: the worker
                 feeds' fork server stopped with the last feed, and the
                 resource tracker it started stops here (the ranks and
                 torchrun's agent of phase 26 included).
@@ -351,16 +368,11 @@ def time_ms(fn, reps=20, calls=1):
 
 def graph_kernels(fn):
     """(kernel nodes, all nodes) of a CUDA graph captured around one call of
-    ``fn``, counted with libcuda's cuGraphGetNodes and cuGraphNodeGetType."""
-    import ctypes
-
+    ``fn`` (``utils/profiling.py::graph_kernel_nodes``)."""
     import torch
 
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
+    from objgan_tpu_torch.utils.profiling import graph_kernel_nodes
+
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -369,20 +381,9 @@ def graph_kernels(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    raw, count = graph.raw_cuda_graph(), ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * count.value)()
-    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0,
-          "cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0,
-              "cuGraphNodeGetType failed")
-        kinds.append(kind.value)
+    kernels, nodes, _ = graph_kernel_nodes(graph.raw_cuda_graph())
     graph.reset()
-    return kinds.count(0), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, nodes
 
 
 def phase_device():
@@ -2884,6 +2885,324 @@ def phase_ddp(train):
             "a": a_launch}
 
 
+MULTI_K = 4  # TRAIN.STEPS_PER_EXECUTION in phase multi_step
+MULTI_STAGES = (("gan", "coco_objgan.yml"), ("damsm", "damsm_coco.yml"),
+                ("box", None), ("shape", "shape_coco.yml"))
+KERNEL_NAMES = {"K1": "gn_fused_kernel", "K2": "roi_fwd_kernel",
+                "K3": "roi_bwd_kernel"}
+
+
+def _sync_ms(fn, reps):
+    """Median synchronised wall ms of ``reps`` calls of ``fn``."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _graph_against_eager(stage, cfg):
+    """One trainer's K = MULTI_K steps as a CUDA-graph replay against eager
+    steps (``train/card_check.py::graph_against_eager``) in PyTorch's
+    default mode, then timed and profiled both ways; the graph's kernel
+    nodes by kernel. Where two eager runs agree to the bit, the replay
+    must equal them to the bit."""
+    import torch
+
+    from objgan_tpu_torch.train import card_check
+    from objgan_tpu_torch.train.common import index_stack
+    from objgan_tpu_torch.utils.profiling import (device_profile,
+                                                  graph_kernel_nodes)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = card_check.graph_against_eager(stage, cfg, MULTI_K)
+    e, spread, k1e = r["eager_err"], r["spread"], r["k1_err"]
+    check(e["bitwise"] or not spread["bitwise"], f"{stage}: two eager runs "
+          f"agree to the bit and the replay differs from them (max |d| "
+          f"{e['max_abs']:.3g})")
+    check(math.isfinite(r["metric_err"]) and math.isfinite(e["max_abs"]),
+          f"{stage}: non-finite replay")
+    graph, eager = r["graph"], r["eager"]
+    batches, noises = r["inputs"]
+    del r["eager2"], r["k1"]
+
+    def replay():
+        graph.multi_train_step(batches, noises)
+
+    def eager_steps():
+        for i in range(MULTI_K):
+            eager.train_step(index_stack(batches, i),
+                             *index_stack(noises, i))
+
+    _reset_counts()
+    eager_ms = _sync_ms(eager_steps, 1) / MULTI_K
+    per_step = {k: v // MULTI_K for k, v in zip(("K1", "K2", "K3"),
+                                                _counts())}
+    eager_ms = min(eager_ms, _sync_ms(eager_steps, 2) / MULTI_K)
+    _reset_counts()
+    graph_ms = _sync_ms(replay, 3) / MULTI_K
+    check(_counts() == (0, 0, 0), f"{stage}: a replay counted launches")
+    g_wall, g_busy, _ = device_profile(replay)
+    e_wall, e_busy, _ = device_profile(eager_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    kernels, nodes, found = graph_kernel_nodes(
+        graph.multi_step().graph().raw_cuda_graph(),
+        list(KERNEL_NAMES.values()))
+    in_graph = {k: found[name] for k, name in KERNEL_NAMES.items()}
+    want = {k: MULTI_K * v for k, v in per_step.items()}
+    check(in_graph == want == r["captured"], f"{stage}: the graph holds "
+          f"{in_graph} kernel nodes and its capture counted {r['captured']}; "
+          f"{MULTI_K} eager steps launch {want}")
+
+    def err(d):
+        return ("equal to the bit" if d["bitwise"] else
+                f"max |d| {d['max_abs']:.3g}, rel {d['rel']:.3g}")
+
+    log("multi_step", f"{stage}, default mode: {MULTI_K} steps as one "
+        f"replay against {MULTI_K} eager steps (capturable Adam) "
+        f"{err(e)}; two eager runs {err(spread)}; against K = 1's Adam "
+        f"{err(k1e)}; metric means rel {r['metric_err']:.3g}; ms per step "
+        f"eager {eager_ms:.2f}, replay {graph_ms:.2f} (synchronised, inputs "
+        f"copied in); device busy share under torch.profiler eager "
+        f"{e_busy / e_wall:.3f} ({e_busy:.1f} of {e_wall:.1f} ms for "
+        f"{MULTI_K} steps), replay {g_busy / g_wall:.3f} ({g_busy:.1f} of "
+        f"{g_wall:.1f} ms); peak memory allocated {peak_gb:.2f} GiB; graph "
+        f"{nodes} nodes, {kernels} kernels, of them K1 {in_graph['K1']}, "
+        f"K2 {in_graph['K2']}, K3 {in_graph['K3']}")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms,
+            "busy": (e_busy / e_wall, g_busy / g_wall), "peak_gb": peak_gb,
+            "nodes": in_graph, "kernels": kernels, "all_nodes": nodes,
+            "default": card_check.agreement(r)}
+
+
+_AGREEMENT = """
+import json, os, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from objgan_tpu_torch.core.config import Config, cfg_from_file
+from objgan_tpu_torch.core.precision import true_fp32
+from objgan_tpu_torch.train import card_check
+true_fp32()
+torch.use_deterministic_algorithms(True)
+out = {}
+for stage, name in json.loads(sys.argv[2]):
+    cfg = (cfg_from_file(os.path.join(sys.argv[1], "cfg", name)) if name
+           else Config())
+    out[stage] = card_check.agreement(card_check.graph_against_eager(
+        stage, cfg, int(sys.argv[3])))
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def _deterministic_agreement():
+    """Each trainer's replay against eager steps in a process under
+    ``torch.use_deterministic_algorithms`` (cuBLAS's workspace fixed by
+    ``CUBLAS_WORKSPACE_CONFIG`` before its first use): the eager steps are
+    reproducible there, and the replay must equal them to the bit."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", _AGREEMENT, ROOT, json.dumps(MULTI_STAGES),
+         str(MULTI_K)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"deterministic agreement failed (rc "
+          f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for stage, r in res.items():
+        e, spread, k1e = r["eager_err"], r["spread"], r["k1_err"]
+        check(spread["bitwise"], f"{stage}: eager steps not reproducible "
+              f"under deterministic algorithms")
+        check(e["bitwise"] and r["metric_err"] == 0.0, f"{stage}: under "
+              f"deterministic algorithms the replay differs from the eager "
+              f"steps: max |d| {e['max_abs']:.3g}, rel {e['rel']:.3g}, "
+              f"metrics {r['metric_err']:.3g}")
+        log("multi_step", f"{stage}, deterministic algorithms: {MULTI_K} "
+            f"steps as one replay equal to {MULTI_K} eager steps to the bit "
+            f"(state and metric means; two eager runs equal too); against "
+            f"K = 1's Adam (the bias corrections on the host, another "
+            f"rounding) max |d| {k1e['max_abs']:.3g}, rel {k1e['rel']:.3g}")
+    log("multi_step", f"deterministic agreement in a subprocess: "
+        f"{time.monotonic() - t0:.1f} s with start-up")
+    return res
+
+
+def _k_step_refusals():
+    """K > 1 on the card under a gloo group raises; a trainer whose
+    tensors were replaced after the capture (a restore) raises."""
+    import socket
+
+    import torch.distributed as dist
+
+    from objgan_tpu_torch.core.config import tiny_test_config
+    from objgan_tpu_torch.train import card_check
+
+    cfg = tiny_test_config().merged({"DTYPE": "float32"})
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        trainer = card_check.fresh("box", cfg, "cuda")
+        inputs = card_check.stacked_inputs("box", cfg, trainer, 0, MULTI_K,
+                                           "cuda")
+        try:
+            trainer.multi_train_step(*inputs)
+            check(False, "K > 1 ran on the card under a gloo group")
+        except RuntimeError as e:
+            check("gloo" in str(e), f"gloo refusal says {e}")
+            gloo_msg = str(e)
+    finally:
+        dist.destroy_process_group()
+    r = card_check.graph_against_eager("box", cfg, MULTI_K)
+    r["graph"].load_state_dict(r["eager"].state_dict())
+    try:
+        r["graph"].multi_train_step(*r["inputs"])
+        check(False, "a restored trainer replayed its old graph")
+    except RuntimeError as e:
+        check("replaced after" in str(e), f"stale-graph refusal says {e}")
+    return gloo_msg
+
+
+def _gan_main_k(yml, max_steps):
+    """``gan_main --cfg yml`` on the manifest to ``max_steps``, in this
+    process: (its stdout, the kernels' launches)."""
+    import io
+
+    from objgan_tpu_torch import gan_main
+
+    out = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        gan_main.main(["--cfg", yml, "--manifest",
+                       os.path.join(ROOT, MANIFEST), "--data_dir",
+                       os.path.join(ROOT, DATA_DIR), "--max_steps",
+                       str(max_steps), "--log_every", "1"])
+    return out.getvalue(), dict(zip(("K1", "K2", "K3"), _counts()))
+
+
+def phase_multi_step(per_step):
+    """``TRAIN.STEPS_PER_EXECUTION``: (a) each trainer at full width, K =
+    MULTI_K steps as one CUDA-graph replay against as many eager steps
+    from the same state, batches and noise: to the bit under deterministic
+    algorithms (a subprocess), and in the default mode beside two eager
+    runs' own spread; timed, profiled, the graph's kernel nodes counted;
+    (b) ``gan_main`` on the manifest with K =
+    MULTI_K to step 10 (two executions, the ragged tail's two steps), the
+    JAX loop's checkpoints and rows, then resumed to 14; (c) ``gan_main``
+    as one NCCL rank under torchrun with K = MULTI_K; (d) the refusals:
+    K > 1 under gloo on the card, a trainer restored after its capture."""
+    import torch
+    import yaml
+
+    from objgan_tpu_torch.core.config import Config, cfg_from_file
+
+    agree = _deterministic_agreement()
+    res = {}
+    for stage, name in MULTI_STAGES:
+        cfg = (cfg_from_file(os.path.join(ROOT, "cfg", name)) if name
+               else Config())
+        res[stage] = _graph_against_eager(stage, cfg)
+        torch.cuda.empty_cache()
+    want = {k: MULTI_K * v for k, v in per_step.items()}
+    check(res["gan"]["nodes"] == want, f"the Stage-C graph holds "
+          f"{res['gan']['nodes']} kernel nodes, {MULTI_K} x phase train's "
+          f"per step is {want}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multi_")
+    with open(os.path.join(ROOT, "cfg", "coco_objgan.yml")) as f:
+        raw = yaml.safe_load(f)
+    raw["OUTPUT_DIR"] = os.path.join(tmp, "out")
+    raw["TRAIN"].update(STEPS_PER_EXECUTION=MULTI_K, SNAPSHOT_STEPS=3)
+    yml = os.path.join(tmp, "coco_objgan_k.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(raw, f)
+    stage_dir = os.path.join(tmp, "out", f"{raw['CONFIG_NAME']}_gan")
+    t0 = time.monotonic()
+    text, launched = _gan_main_k(yml, 10)
+    wall = time.monotonic() - t0
+    ckpts = sorted(int(d) for d in os.listdir(os.path.join(stage_dir,
+                                                           "ckpt")))
+    # the JAX loop's saves at SNAPSHOT_STEPS 3, K 4: the executions ending
+    # at 4 and 8 pass 3 and 6, the ragged tail's end 10 passes 9
+    check(ckpts == [4, 8, 10], f"gan_main K={MULTI_K}: checkpoints {ckpts}")
+    pngs = sorted(f for f in os.listdir(stage_dir) if f.startswith("attn"))
+    check(pngs == ["attn_step10.png", "attn_step4.png", "attn_step8.png"],
+          f"gan_main K={MULTI_K}: grids {pngs}")
+    with open(os.path.join(stage_dir, "gan_metrics.csv")) as f:
+        rows = [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+    check([r["step"] for r in rows] == [4, 8, 10], f"gan_main K={MULTI_K}: "
+          f"rows at {[r['step'] for r in rows]}")
+    bad = [k for r in rows for k, v in r.items() if not math.isfinite(v)]
+    check(not bad, f"gan_main K={MULTI_K}: non-finite metrics {bad}")
+    # launches counted: the eager first execution, the capture (recorded
+    # once, replayed), the tail's two steps; K2 and K3 only in the steps
+    counted = 2 * MULTI_K + 2
+    check(launched["K2"] == 3 * counted and launched["K3"] == 3 * counted
+          and launched["K1"] >= per_step["K1"] * counted,
+          f"gan_main K={MULTI_K}: launches {launched}")
+    t0 = time.monotonic()
+    text2, _ = _gan_main_k(yml, 14)
+    wall2 = time.monotonic() - t0
+    check("resumed from step 10" in text2, "gan_main K: no resume")
+    ckpts2 = sorted(int(d) for d in os.listdir(os.path.join(stage_dir,
+                                                            "ckpt")))
+    check(ckpts2 == [8, 10, 14], f"gan_main K resumed: checkpoints {ckpts2}")
+    log("multi_step", f"(b) gan_main --cfg coco_objgan (STEPS_PER_EXECUTION "
+        f"{MULTI_K}, SNAPSHOT_STEPS 3) --manifest {MANIFEST} --max_steps 10 "
+        f"in {wall:.1f} s with set-up: checkpoints {ckpts}, grids {pngs}, "
+        f"CSV rows at steps {[int(r['step']) for r in rows]} (K-meaned at 4 "
+        f"and 8), every metric finite, launches counted {launched}; resumed "
+        f"to 14 in {wall2:.1f} s: checkpoints {ckpts2}")
+
+    counts = os.path.join(tmp, "counts")
+    t0 = time.monotonic()
+    raw["OUTPUT_DIR"] = os.path.join(tmp, "ddp")
+    raw["TRAIN"]["SNAPSHOT_STEPS"] = 1000  # no grid: only the steps count
+    with open(yml, "w") as f:
+        yaml.safe_dump(raw, f)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", os.path.abspath(__file__), "--entry",
+         "objgan_tpu_torch.gan_main", counts, "--cfg", yml, "--max_steps",
+         str(2 * MULTI_K), "--log_every", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall3 = time.monotonic() - t0
+    check(proc.returncode == 0, f"torchrun gan_main K={MULTI_K} failed (rc "
+          f"{proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    ddp_dir = os.path.join(tmp, "ddp", f"{raw['CONFIG_NAME']}_gan")
+    with open(os.path.join(ddp_dir, "gan_metrics.csv")) as f:
+        ddp_rows = [int(float(r["step"])) for r in csv.DictReader(f)]
+    check(ddp_rows == [MULTI_K, 2 * MULTI_K], f"torchrun gan_main K: rows "
+          f"{ddp_rows}")
+    with open(f"{counts}.0") as f:
+        ddp_launched = json.load(f)
+    want = {k: 2 * MULTI_K * v for k, v in per_step.items()}
+    check(ddp_launched == want, f"torchrun gan_main K: launches "
+          f"{ddp_launched}, want {want} (the eager execution and the "
+          f"capture)")
+    log("multi_step", f"(c) torchrun --nproc_per_node=1 gan_main "
+        f"(STEPS_PER_EXECUTION {MULTI_K}, NCCL, the gradients' and "
+        f"metrics' all-reduces inside the graph) --max_steps {2 * MULTI_K} "
+        f"in {wall3:.1f} s with start-up: rows {ddp_rows}, launches "
+        f"counted {ddp_launched}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    gloo_msg = _k_step_refusals()
+    log("multi_step", f"(d) refused: gloo on the card ({gloo_msg[:80]}...), "
+        f"and a trainer restored after its capture")
+    torch.cuda.empty_cache()
+    return {"stages": res, "agreement": agree, "launches": launched,
+            "ddp": ddp_launched}
+
+
 @contextlib.contextmanager
 def _numpy_fill():
     """The feed's polygon fill swapped for its numpy plain version."""
@@ -3783,6 +4102,8 @@ def main():
     phase_small_eval()
     feed = phase_feed(train["k1_per_step"])
     ddp = phase_ddp(train)
+    multi = phase_multi_step({k: train[k.lower()] // TRAIN_STEPS
+                              for k in ("K1", "K2", "K3")})
     phase_native()
     lineage = phase_lineage()
     torch.cuda.empty_cache()
@@ -3817,6 +4138,12 @@ def main():
                 "max_abs_err": ddp["errs"]["K1"]},
         "orbax": {"launches": orbax["launches"]["K1"],
                   "max_abs_err": orbax["errs"]["K1"]},
+        # launches: counted by the wrappers in phase multi_step's gan_main
+        # run (the eager execution, the capture, the tail); graph_nodes: K1
+        # nodes in each trainer's graph of MULTI_K steps
+        "multi_step": {"launches": multi["launches"]["K1"],
+                       "graph_nodes": {s: r["nodes"]["K1"] for s, r in
+                                       multi["stages"].items()}},
         **{path: {"launches": r["launches"]["K1"]}
            for path, r in new_paths.items()},
         **{path: {"launches": launched, "max_abs_err": err, "ms": r["ms"],
@@ -3849,6 +4176,9 @@ def main():
                     "max_abs_err": ddp["errs"][key]},
             "orbax": {"launches": orbax["launches"][key],
                       "max_abs_err": orbax["errs"][key]},
+            "multi_step": {"launches": multi["launches"][key],
+                           "graph_nodes": multi["stages"]["gan"]["nodes"][
+                               key]},
             **{path: {"launches": r["launches"][key]}
                for path, r in new_paths.items()},
         })

@@ -3,8 +3,9 @@ points: DAMSM pretraining (``python -m objgan_tpu_torch.pretrain_damsm``),
 Stage A (``box_train``, ``box_sample``), Stage B (``shape_main``) and
 Stage C, train or sample (``gan_main``), and Stage C's quality evaluation
 (``eval``). Port of ``objgan_tpu/cli.py``: ``_out_dir``,
-``_already_trained``, ``apply_epoch_schedule``, ``_run_loop`` (one device,
-one step per call), ``load_damsm_encoders``, ``pretrain_damsm``,
+``_already_trained``, ``apply_epoch_schedule``, ``_PrefetchFeed``
+(``PrefetchFeed``), ``_run_loop`` (one device; K steps per execution with
+``TRAIN.STEPS_PER_EXECUTION``), ``load_damsm_encoders``, ``pretrain_damsm``,
 ``train_gan``, ``sample_gan``, ``train_box``, ``sample_box``, ``eval_box``,
 ``train_shape`` and ``eval_shape``; and of ``gan/eval.py``'s body,
 ``evaluate``.
@@ -37,9 +38,12 @@ Without such an environment one process runs as before.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
+import queue
 import sys
+import threading
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -53,8 +57,9 @@ from objgan_tpu_torch.core.precision import true_fp32
 from objgan_tpu_torch.data.synthetic import synthetic_batch
 from objgan_tpu_torch.data.wire import WIRE_IMAGE, from_wire
 from objgan_tpu_torch.parallel import sharding
-from objgan_tpu_torch.train.box import BoxTrainer, box_noise, ss_flips
-from objgan_tpu_torch.train.common import Trainer, step_generator
+from objgan_tpu_torch.train.box import BoxTrainer, box_noise
+from objgan_tpu_torch.train.common import (Trainer, index_stack,
+                                           step_generator, tensor_leaves)
 from objgan_tpu_torch.train.damsm import DamsmTrainer
 from objgan_tpu_torch.train.gan import GanTrainer, train_noise
 from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
@@ -170,56 +175,219 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def gan_step(cfg: Config, trainer: GanTrainer, batch: Dict, step: int,
-             device) -> Dict[str, torch.Tensor]:
-    """One Stage-C step on a batch on ``device``, its noise drawn from
-    (RNG_SEED, step)."""
-    noise = train_noise(cfg, batch["captions"].shape[0], step_generator(
-        cfg.RNG_SEED, step, device, _NOISE), device)
-    return trainer.train_step(batch, noise["z"], noise["ca_eps"])
+def step_noise(cfg: Config, trainer: Trainer, batch: Dict, step: int,
+               device) -> tuple:
+    """The noise arguments of ``trainer.train_step`` for ``step``, drawn on
+    ``device`` from (RNG_SEED, step) (``Trainer.step_noise``): Stage C's z
+    and ca_eps, DAMSM's dropout mask, Stage A's scheduled-sampling flips,
+    Stage B's z."""
+    return trainer.step_noise(batch, step_generator(cfg.RNG_SEED, step,
+                                                    device, _NOISE))
 
 
-def damsm_step(cfg: Config, trainer: DamsmTrainer, batch: Dict, step: int,
+def train_step(cfg: Config, trainer: Trainer, batch: Dict, step: int,
                device) -> Dict[str, torch.Tensor]:
-    """One DAMSM step, its dropout mask drawn from (RNG_SEED, step)."""
-    keep = trainer.text_enc.keep_mask(
-        batch["captions"], step_generator(cfg.RNG_SEED, step, device,
-                                          _NOISE))
-    return trainer.train_step(batch, keep)
+    """One step of any trainer on a batch on ``device``, its noise drawn
+    from (RNG_SEED, step)."""
+    return trainer.train_step(batch, *step_noise(cfg, trainer, batch, step,
+                                                 device))
 
 
-def box_step(cfg: Config, trainer: BoxTrainer, batch: Dict, step: int,
-             device) -> Dict[str, torch.Tensor]:
-    """One Stage-A step, its scheduled-sampling flips drawn from (RNG_SEED,
-    step)."""
-    b, o = batch["labels"].shape
-    flips = ss_flips(cfg, o, b, step_generator(cfg.RNG_SEED, step, device,
-                                               _NOISE), device)
-    return trainer.train_step(batch, flips)
+def _host_layout(batch: Dict) -> tuple:
+    return tuple((k, tuple(np.shape(v) for v in x) if isinstance(x, list)
+                  else tuple(np.shape(x))) for k, x in batch.items())
 
 
-def shape_step(cfg: Config, trainer: ShapeTrainer, batch: Dict, step: int,
-               device) -> Dict[str, torch.Tensor]:
-    """One Stage-B step, its noise drawn from (RNG_SEED, step)."""
-    z = shape_noise(cfg, batch["labels"].shape[0], step_generator(
-        cfg.RNG_SEED, step, device, _NOISE), device)
-    return trainer.train_step(batch, z)
+def stack_batches(batches, pin: bool = False) -> Dict:
+    """Batches of one layout stacked on a new leading axis ("images" level
+    by level): numpy arrays into one host tensor per key (pinned with
+    ``pin``, for a non-blocking copy to a card), tensors where they lie."""
+    def stack(xs):
+        if isinstance(xs[0], list):
+            return [stack([x[i] for x in xs]) for i in range(len(xs[0]))]
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        first = torch.from_numpy(np.ascontiguousarray(xs[0]))
+        out = torch.empty((len(xs), *first.shape), dtype=first.dtype,
+                          pin_memory=pin)
+        for i, x in enumerate(xs):
+            out[i].copy_(torch.from_numpy(np.ascontiguousarray(x)))
+        return out
+
+    return {k: stack([b[k] for b in batches]) for k in batches[0]}
 
 
-def _run_loop(cfg: Config, trainer: Trainer,
-              step_fn: Callable[[Dict, int], Dict], feed: Iterator[Dict],
+def stack_noise(noises) -> tuple:
+    """K steps' noise arguments (tuples of tensors or None) stacked
+    position by position; None stays None."""
+    return tuple(None if parts[0] is None else torch.stack(parts)
+                 for parts in zip(*noises))
+
+
+class PrefetchFeed:
+    """The K-step loop's feed (``TRAIN.STEPS_PER_EXECUTION`` K > 1): the
+    counterpart of JAX's ``_PrefetchFeed``. A producer thread takes the
+    batches of ``feed`` for steps ``start``, ``start + 1``, ..., stacks K
+    of one layout (``stack_batches``) with the K steps' noise
+    (``noise(batch, step)``) and ships them to ``device`` while the
+    previous execution runs: on a card through pinned memory and a
+    non-blocking copy on a stream of its own, which the consumer's stream
+    then waits for. At most ``depth`` items wait.
+
+    Yields ``("exec", (batches, noises))`` per stack, and ``("single",
+    batch)`` for each batch that makes none: a bounded feed's partial last
+    stack, and batches whose shapes differ from those before them. An
+    error of the feed or of the copy reaches the consumer as
+    ``RuntimeError("prefetch feed failed")``, raised from it: a producer
+    that died silently would leave the loop waiting for good. ``close()``
+    ends the thread. ``feed`` stays the caller's, as at K = 1: a worker
+    feed's workers, and with the last of them the fork server, stop when
+    the caller closes or drops it."""
+
+    def __init__(self, feed: Iterator[Dict], k: int, start: int,
+                 noise: Callable[[Dict, int], tuple], device,
+                 depth: int = 2):
+        self._feed, self._k, self._start = feed, k, start
+        self._noise = noise
+        self._device = torch.device(device)
+        self._stream = None
+        if self._device.type == "cuda":
+            # batches the caller made on its stream (the first one, taken
+            # for the snapshots) are ready before this stream reads them
+            self._stream = torch.cuda.Stream(self._device)
+            self._stream.wait_stream(torch.cuda.current_stream(self._device))
+        self._q = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._produce, daemon=True,
+                                        name="prefetch-feed")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _ship(self, pending, step: int):
+        cuda = self._stream is not None
+        if cuda:  # a feed's device tensors, read here
+            for t in tensor_leaves(pending):
+                if t.is_cuda:
+                    t.record_stream(self._stream)
+        batches = to_device(stack_batches(pending, pin=cuda), self._device)
+        noises = stack_noise([self._noise(b, step + i)
+                               for i, b in enumerate(pending)])
+        ready = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return batches, noises, ready
+
+    def _produce(self):
+        try:
+            with (torch.cuda.stream(self._stream) if self._stream is not None
+                  else contextlib.nullcontext()):
+                self._fill()
+        except Exception as e:  # noqa: BLE001 — raised in the consumer
+            self._put(("error", e))
+
+    def _fill(self):
+        pending, step = [], self._start
+
+        def singles() -> bool:
+            nonlocal pending, step
+            for b in pending:
+                if not self._put(("single", b)):
+                    return False
+            step += len(pending)
+            pending = []
+            return True
+
+        it = iter(self._feed)
+        while not self._stop.is_set():
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            if pending and _host_layout(batch) != _host_layout(pending[0]):
+                if not singles():
+                    return
+            pending.append(batch)
+            if len(pending) == self._k:
+                if not self._put(("exec", self._ship(pending, step))):
+                    return
+                step += self._k
+                pending = []
+        if singles():
+            self._put(("end", None))
+
+    def _get(self):
+        while True:
+            try:
+                return self._q.get(timeout=1.0)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._q.empty():
+                    raise RuntimeError("prefetch feed failed: its thread "
+                                       "ended without a result") from None
+
+    def __iter__(self):
+        while True:
+            kind, val = self._get()
+            if kind == "end":
+                return
+            if kind == "error":
+                raise RuntimeError("prefetch feed failed") from val
+            if kind == "exec":
+                batches, noises, ready = val
+                if ready is not None:
+                    current = torch.cuda.current_stream(self._device)
+                    current.wait_event(ready)
+                    for t in tensor_leaves((batches, noises)):
+                        t.record_stream(current)
+                val = (batches, noises)
+            yield kind, val
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the producer and wait for it, ``timeout`` seconds at
+        most."""
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        while self._thread.is_alive() and time.monotonic() < deadline:
+            try:
+                self._q.get_nowait()  # a producer waiting to put goes on
+            except queue.Empty:
+                self._thread.join(0.1)
+
+
+def _run_loop(cfg: Config, trainer: Trainer, feed: Iterator[Dict],
               writer: MetricsWriter, manager: CheckpointManager,
-              max_steps: int, snapshot_hook=None, log_every: int = 50):
+              max_steps: int, device, snapshot_hook=None,
+              log_every: int = 50):
     """Step loop from the trainer's own (restored) step to ``max_steps``,
-    or until ``feed`` ends. ``step_fn(batch, step)`` takes one step and
-    returns its metrics. A
-    metric row (CSV, and stdout every ``log_every`` steps) at the first
-    step, every ``log_every`` steps and at the last (also when the feed
-    ends first), with
-    ``steps_per_sec`` over the steps since the previous row, synchronised.
-    A checkpoint and a snapshot every ``SNAPSHOT_STEPS`` steps (500 when
-    unset), and a checkpoint at the end; a step already saved is not
-    written again. Rank 0 alone writes rows, checkpoints and snapshots."""
+    or until ``feed`` ends; a step's noise is drawn from (RNG_SEED, step)
+    (``train_step``). With ``TRAIN.STEPS_PER_EXECUTION`` K > 1 it is JAX's
+    K-step loop: ``PrefetchFeed`` stacks K batches with their noise, and
+    one ``trainer.multi_train_step`` takes them (on a card, one CUDA-graph
+    replay); a stack that would pass ``max_steps`` (the ragged tail), a
+    bounded feed's partial last stack and batches whose shapes differ from
+    the captured ones run as single steps. A K-step execution draws the
+    noise of K single steps, so a resume anywhere equals an unbroken run.
+
+    A metric row (CSV, and stdout every ``log_every`` steps) at the first
+    step or execution, every ``max(log_every, K)`` steps, at
+    ``max_steps`` and when the feed ends first, with ``steps_per_sec``
+    over the steps since the previous row, synchronised; an execution's
+    row holds its K-axis means. A checkpoint and a snapshot after a step
+    or execution that ends past a multiple of ``SNAPSHOT_STEPS`` (500
+    when unset): ``step % SNAPSHOT_STEPS < K``, from the first multiple
+    on, JAX's rule; and a checkpoint at the end. A step already saved is
+    not written again. Rank 0 alone writes rows, checkpoints and
+    snapshots."""
+    k = max(1, cfg.TRAIN.STEPS_PER_EXECUTION)
+    log_every = max(log_every, k)
     step = trainer.step
     last_logged, t_last, logged_any = step, time.monotonic(), False
     snap_every = cfg.TRAIN.SNAPSHOT_STEPS or 500
@@ -232,16 +400,44 @@ def _run_loop(cfg: Config, trainer: Trainer,
         last_logged, t_last, logged_any = step, now, True
         writer.write(step, vals)
 
-    for batch in itertools.islice(feed, max(max_steps - step, 0)):
-        metrics = step_fn(batch, step)
-        step = trainer.step
+    def after(metrics):
         if (step - last_logged >= log_every or not logged_any
                 or step == max_steps):
             log(metrics)
-        if step % snap_every == 0:
+        if step >= snap_every and step % snap_every < k:
             manager.save(step, trainer)
             if snapshot_hook is not None and sharding.is_main():
                 snapshot_hook(step)
+
+    def single(batch, at):
+        return train_step(cfg, trainer, to_device(batch, device), at, device)
+
+    if k == 1:
+        for batch in itertools.islice(feed, max(max_steps - step, 0)):
+            metrics = single(batch, step)
+            step = trainer.step
+            after(metrics)
+    elif step < max_steps:
+        prefetch = PrefetchFeed(feed, k, step, lambda b, at: step_noise(
+            cfg, trainer, b, at, device), device)
+        try:
+            for kind, val in prefetch:
+                if (kind == "exec" and max_steps - step >= k
+                        and trainer.multi_step().fits(*val)):
+                    metrics = trainer.multi_train_step(*val)
+                elif kind == "exec":  # the ragged tail, or another layout
+                    batches, noises = val
+                    for i in range(min(k, max_steps - step)):
+                        metrics = trainer.train_step(
+                            index_stack(batches, i), *index_stack(noises, i))
+                else:
+                    metrics = single(val, step)
+                step = trainer.step
+                after(metrics)
+                if step >= max_steps:
+                    break
+        finally:
+            prefetch.close()
     if step != last_logged:  # the feed ended between rows
         log(metrics)
     manager.save(step, trainer)
@@ -320,9 +516,6 @@ def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     first_dev = to_device(first, device)
     b = first_dev["captions"].shape[0]
 
-    def step_fn(batch, step):
-        return gan_step(cfg, trainer, to_device(batch, device), step, device)
-
     def snapshot(step):
         noise = train_noise(cfg, b, step_generator(cfg.RNG_SEED, step,
                                                    device, _SNAPSHOT), device)
@@ -340,9 +533,8 @@ def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                      captions=caps, cap_lens=lens, ixtoword=ixtoword,
                      class_names=COCO_CLASSES))
 
-    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "gan",
-                                                         log_every),
-              manager, max_steps, snapshot, log_every)
+    _run_loop(cfg, trainer, feed, MetricsWriter(out, "gan", log_every),
+              manager, max_steps, device, snapshot, log_every)
     return trainer
 
 
@@ -414,10 +606,6 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                  if WIRE_IMAGE in first else _numpy(first["images"][-1]))
     smooth = cfg.TRAIN.SMOOTH
 
-    def step_fn(batch, step):
-        return damsm_step(cfg, trainer, to_device(batch, device), step,
-                          device)
-
     @torch.no_grad()
     def snapshot(step):
         caps, lens = first_dev["captions"], first_dev["cap_lens"]
@@ -436,9 +624,8 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                                     cap_lens=_numpy(lens),
                                     ixtoword=ixtoword))
 
-    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "damsm",
-                                                         log_every),
-              manager, max_steps, snapshot, log_every)
+    _run_loop(cfg, trainer, feed, MetricsWriter(out, "damsm", log_every),
+              manager, max_steps, device, snapshot, log_every)
     return trainer
 
 
@@ -487,12 +674,8 @@ def train_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
 
-    def step_fn(batch, step):
-        return box_step(cfg, trainer, to_device(batch, device), step, device)
-
-    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "box",
-                                                         log_every),
-              manager, max_steps, log_every=log_every)
+    _run_loop(cfg, trainer, feed, MetricsWriter(out, "box", log_every),
+              manager, max_steps, device, log_every=log_every)
     return trainer
 
 
@@ -578,13 +761,8 @@ def train_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     if feed is None:
         feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
 
-    def step_fn(batch, step):
-        return shape_step(cfg, trainer, to_device(batch, device), step,
-                          device)
-
-    _run_loop(cfg, trainer, step_fn, feed, MetricsWriter(out, "shape",
-                                                         log_every),
-              manager, max_steps, log_every=log_every)
+    _run_loop(cfg, trainer, feed, MetricsWriter(out, "shape", log_every),
+              manager, max_steps, device, log_every=log_every)
     return trainer
 
 

@@ -54,10 +54,8 @@ K_STEPS = 2
 BF16_STEPS = 3  # the first of them warms up; ms per step from the rest
 METRIC_RTOL = 2e-3
 PIXEL_ATOL = 5e-3
-STAGES = {"gan": (GanTrainer, cli.gan_step),
-          "damsm": (DamsmTrainer, cli.damsm_step),
-          "box": (BoxTrainer, cli.box_step),
-          "shape": (ShapeTrainer, cli.shape_step)}
+STAGES = {"gan": GanTrainer, "damsm": DamsmTrainer, "box": BoxTrainer,
+          "shape": ShapeTrainer}
 
 
 def numpy_batch(cfg: Config, rows: int, seed: int) -> Dict[str, Any]:
@@ -127,14 +125,13 @@ def run_stage(device: torch.device, stage: str, cfg: Config,
     step's metrics, the state after the steps (CPU), the kernel launches,
     and for Stage C the finest images that the EMA generator samples for
     the rank's rows of the last batch."""
-    cls, step = STAGES[stage]
-    trainer = cli.fresh_trainer(cfg, cls(cfg), device)
+    trainer = cli.fresh_trainer(cfg, STAGES[stage](cfg), device)
     sharding.broadcast_module_(trainer)
     before = _launches()
     metrics = []
     for k, batch in enumerate(batches):
-        m = step(cfg, trainer, cli.to_device(local_part(batch), device), k,
-                 device)
+        m = cli.train_step(cfg, trainer, cli.to_device(local_part(batch),
+                                                       device), k, device)
         metrics.append({name: float(v) for name, v in m.items()})
     out = {"metrics": metrics, "launches": _since(before)}
     if stage == "gan":
@@ -178,8 +175,7 @@ def bf16_steps(device: torch.device, cfg_name: str,
     step, the digest of the parameters after them and the kernel
     launches."""
     cfg = bf16_cfg(cfg_name, world)
-    cls, step = STAGES["gan"]
-    trainer = cli.fresh_trainer(cfg, cls(cfg), device)
+    trainer = cli.fresh_trainer(cfg, GanTrainer(cfg), device)
     sharding.broadcast_module_(trainer)
     before = _launches()
     metrics, ms = [], []
@@ -188,7 +184,7 @@ def bf16_steps(device: torch.device, cfg_name: str,
             cfg, cfg.TRAIN.BATCH_SIZE, 200 + k)), device)
         _sync(device)
         t0 = time.monotonic()
-        m = step(cfg, trainer, batch, k, device)
+        m = cli.train_step(cfg, trainer, batch, k, device)
         _sync(device)
         ms.append((time.monotonic() - t0) * 1e3)
         metrics.append({name: float(v) for name, v in m.items()})

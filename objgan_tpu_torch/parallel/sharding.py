@@ -292,6 +292,29 @@ def broadcast_module_(module: torch.nn.Module) -> None:
     module.load_state_dict(state)
 
 
+def check_capturable() -> None:
+    """Raise unless this group's collectives can be captured in a CUDA
+    graph (``train/common.py::MultiStep``): NCCL's run on the card and can,
+    gloo's run on the host and cannot. Nothing to check without a
+    group."""
+    if _ready() and dist.get_backend() != "nccl":
+        raise RuntimeError(
+            f"TRAIN.STEPS_PER_EXECUTION > 1 on a CUDA device captures the "
+            f"steps in a CUDA graph, and a {dist.get_backend()} process "
+            f"group's collectives cannot be captured: use NCCL, or "
+            f"STEPS_PER_EXECUTION 1")
+
+
+def prepare_capture() -> None:
+    """One all-reduce on the current stream, before a CUDA graph captures
+    the gradients' and metrics' all-reduces: NCCL sets up its
+    communicator and stream at a first collective, which cannot happen
+    inside a capture. Nothing without an NCCL group."""
+    if _ready() and dist.get_backend() == "nccl":
+        dist.all_reduce(torch.zeros(1, device=torch.device(
+            "cuda", torch.cuda.current_device())))
+
+
 def shutdown() -> None:
     """Leave the process group, if this process joined one: an entry
     point's last act."""

@@ -5,14 +5,18 @@ the counterpart of ``objgan_tpu/tools/profile_feed.py``.
      record, in the calling process;
   2. batch assembly (the feed's ms per batch, collate included; with
      ``--grain`` from WORKERS worker processes);
-  3. the K-stack: none (``STEPS_PER_EXECUTION`` is not ported);
-  4. host->device through pinned memory and a non-blocking copy
-     (``cli.to_device``), synchronised, with bytes and GB/s;
+  3. the K-stack: K = ``--k`` (default ``max(1, STEPS_PER_EXECUTION)``)
+     batches stacked into pinned host memory (``cli.stack_batches``, what
+     the K-step loop's producer thread does), ms and bytes, and that
+     stack's pinned host->device copy, synchronised, with GB/s;
+  4. host->device of one batch through pinned memory and a non-blocking
+     copy (``cli.to_device``), synchronised, with bytes and GB/s;
   5. with ``--train``, one synchronised ``GanTrainer.train_step`` on a
      batch already on the device.
 
     python -m objgan_tpu_torch.tools.profile_feed --cfg cfg/coco_objgan.yml \
-        --manifest data_proc2k/manifest.json [--wire] [--grain] [--train]
+        --manifest data_proc2k/manifest.json [--wire] [--grain] [--k K] \
+        [--train]
 
 The image root is ``--data_dir``, by default the manifest's directory.
 Runs on the CUDA device unless ``--device`` says otherwise; a time taken
@@ -49,6 +53,9 @@ def main(argv=None) -> None:
                     help="batches from the multi-worker host feed "
                          "(WORKERS worker processes)")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--k", type=int, default=0,
+                    help="steps per execution to stack in stage 3 "
+                         "(default: max(1, TRAIN.STEPS_PER_EXECUTION))")
     ap.add_argument("--train", action="store_true",
                     help="also time one Stage-C train step")
     ap.add_argument("--device", default="cuda",
@@ -71,6 +78,7 @@ def main(argv=None) -> None:
     vocab = Vocab.build(c for r in records for c in r["captions"])
     feed = CocoFeed(cfg, records, vocab, seed=0, wire=args.wire)
     b = cfg.TRAIN.BATCH_SIZE
+    k = args.k or max(1, cfg.TRAIN.STEPS_PER_EXECUTION)
     if args.wire:  # fill the deterministic cache so timings are steady
         if feed._cache is None:
             print("NOTE: wire cache disabled by the byte-budget policy "
@@ -104,22 +112,37 @@ def main(argv=None) -> None:
     next(it)  # workers up, lazy imports done
     for _ in range(skip):
         next(it)
+    n = max(BATCHES, k)
     t0 = time.perf_counter()
-    batches = list(itertools.islice(it, BATCHES))
-    t_batch = (time.perf_counter() - t0) / BATCHES
+    batches = list(itertools.islice(it, n))
+    t_batch = (time.perf_counter() - t0) / n
     if args.grain:
         it.close()
     print(f"2. batch assembly: {t_batch * 1e3:.1f} ms/batch-{b} "
           f"-> feed ceiling {1 / t_batch:.2f} steps/s")
 
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+
     # -- 3. K-stack ----------------------------------------------------
-    print("3. K-stack: none — STEPS_PER_EXECUTION (make_multi_step) is not "
-          "ported; one batch per step")
+    pin = device.type == "cuda"
+    t0 = time.perf_counter()
+    stacked = cli.stack_batches(batches[:k], pin=pin)
+    t_stack = time.perf_counter() - t0
+    k_bytes = k * batch_bytes(batches[0])
+    print(f"3. K={k} stack: {t_stack * 1e3:.2f} ms for {k_bytes / 1e6:.2f} "
+          f"MB ({'pinned' if pin else 'pageable'} host memory)")
+    for rep in range(args.reps):
+        sync()
+        t0 = time.perf_counter()
+        cli.to_device(stacked, device)
+        sync()
+        t_kput = time.perf_counter() - t0
+        print(f"3. K={k} stack host->device ({device}) rep {rep}: "
+              f"{t_kput * 1e3:.2f} ms -> {k_bytes / t_kput / 1e9:.2f} GB/s")
 
     # -- 4. host->device transfer -------------------------------------
     nbytes = batch_bytes(batches[0])
-    sync = (torch.cuda.synchronize if device.type == "cuda"
-            else (lambda: None))
     for rep in range(args.reps):
         sync()
         t0 = time.perf_counter()

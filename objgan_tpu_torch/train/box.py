@@ -69,7 +69,10 @@ def sample(model: BoxGenerator, captions: torch.Tensor,
 class BoxTrainer(Trainer):
     """The box generator ``model``, its optimiser and the step.
     ``init_state(generator)`` draws fresh weights (on the CPU, then move
-    the trainer); ``core.bridge.load_jax_state`` loads a JAX state."""
+    the trainer); ``core.bridge.load_jax_state`` loads a JAX state.
+    ``multi_train_step(batches, (flips,))`` takes K steps on stacked
+    inputs (``train/common.py::MultiStep``; flips None without scheduled
+    sampling)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -120,6 +123,11 @@ class BoxTrainer(Trainer):
         grads, metrics = self.grads(batch, flips)
         self.apply_grads(grads)
         return metrics
+
+    def step_noise(self, batch: Dict, generator: torch.Generator):
+        """(scheduled sampling's flips, or None,)."""
+        b, o = batch["labels"].shape
+        return (ss_flips(self.cfg, o, b, generator, generator.device),)
 
     @torch.no_grad()
     def sample(self, captions: torch.Tensor, cap_lens: torch.Tensor,

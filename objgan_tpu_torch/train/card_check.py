@@ -17,6 +17,11 @@ and JAX's noise from ``goldens`` (``tests/data/orbax_goldens.npz``).
 ``restored_step`` takes one train step there and ``golden_errors``
 measures it against JAX's; ``restored_grads_on_card`` holds a ``grads``
 call on the card to the CPU's, as ``tiny_step_on_card`` does.
+
+``graph_against_eager(stage, cfg, k, device)`` holds K train steps as one
+CUDA-graph replay (``MultiStep``, ``TRAIN.STEPS_PER_EXECUTION``) to K
+eager single steps from the same state, batches and noise, as
+``chip_smoke.py`` (full width) and the card tests (tiny) do.
 """
 
 from __future__ import annotations
@@ -254,3 +259,122 @@ def golden_errors(stage: str, trainer, metrics: Mapping[str, float],
     return {"metric_err": metric_err, "state_score": score, "worst": worst,
             "metrics": len(want_m), "tensors": len(keys),
             "step_ok": trainer.step == int(goldens[f"{stage}.step"])}
+
+
+# -- K steps per execution: the graph against eager steps ------------------------
+
+_TRAINERS_WITH_IMAGES = ("gan", "damsm")
+
+
+def stacked_inputs(stage: str, cfg, trainer, start: int, k: int, device,
+                   seed: int = 0):
+    """(batches, noises) of K steps from ``start`` on ``device``: synthetic
+    batches of ``stage`` drawn from (``seed``, step) stacked on a leading
+    axis, and each step's noise from (RNG_SEED, step), as the K-step loop
+    stacks them."""
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.train.common import step_generator
+
+    batches = [synthetic_batch(cfg, step_generator(seed, start + i, device, 1),
+                               with_images=stage in _TRAINERS_WITH_IMAGES)
+               for i in range(k)]
+    noises = cli.stack_noise([cli.step_noise(cfg, trainer, b, start + i,
+                                             device)
+                              for i, b in enumerate(batches)])
+    return cli.stack_batches(batches), noises
+
+
+def fresh(stage: str, cfg, device):
+    """A trainer of ``stage`` with the weights of ``cfg.RNG_SEED`` on
+    ``device``, as the entry points make it."""
+    from objgan_tpu_torch import cli
+
+    if stage == "gan":
+        return cli.make_trainer(cfg, device)
+    return cli.fresh_trainer(cfg, _orbax_trainer(stage, cfg), device)
+
+
+def state_errors(stage: str, got: Mapping[str, torch.Tensor],
+                 want: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """How far two state dicts lie apart: ``bitwise`` equal or not, the
+    largest element error ``max_abs`` and relative-in-norm error ``rel``
+    (each over all float tensors), and ``misfits``, the tensors outside
+    both STATE_ATOL element by element and the stage's STATE_RTOL in
+    norm."""
+    bitwise, max_abs, rel, misfits = True, 0.0, 0.0, []
+    for k, w in want.items():
+        g = got[k].detach()
+        bitwise = bitwise and torch.equal(g.cpu(), w.detach().cpu())
+        if not w.is_floating_point() or not w.numel():
+            continue
+        d = g.double().cpu() - w.double().cpu()
+        a = float(d.abs().max())
+        r = float(d.norm()) / max(float(w.double().norm()), 1e-30)
+        max_abs, rel = max(max_abs, a), max(rel, r)
+        if a > STATE_ATOL and r > STATE_RTOL[stage]:
+            misfits.append(k)
+    return {"bitwise": bitwise, "max_abs": max_abs, "rel": rel,
+            "misfits": misfits}
+
+
+def graph_against_eager(stage: str, cfg, k: int = 4, device="cuda"):
+    """K train steps of ``stage`` at ``cfg`` as one CUDA-graph replay
+    against K eager single steps from the same state, batches and noise.
+
+    Trainer ``graph`` takes its first execution (the eager warm-up that
+    makes Adam capturable), then a second, which it captures and replays.
+    Copies of it after the first (without its executor) take the second's
+    K steps one by one: ``eager`` and ``eager2`` with the same capturable Adam (two, to
+    show eager's own spread), ``k1`` with Adam as K = 1 runs it. Returns
+    the trainers, the second execution's inputs, the kernels' launches
+    while it was captured (``ops.*.launches``: one per kernel node a
+    wrapper recorded), ``state_errors`` of ``graph`` against ``eager``
+    (``eager_err``), of ``eager2`` against ``eager`` (``spread``) and of
+    ``graph`` against ``k1`` (``k1_err``), and the metric means' largest
+    relative error (``metric_err``). Under
+    ``torch.use_deterministic_algorithms`` (with
+    ``CUBLAS_WORKSPACE_CONFIG`` set before the process first used cuBLAS)
+    eager steps are reproducible, and the replay equals them to the
+    bit."""
+    from objgan_tpu_torch.ops import groupnorm, roi_align
+    from objgan_tpu_torch.train.common import index_stack, set_capturable
+
+    graph = fresh(stage, cfg, device)
+    graph.multi_train_step(*stacked_inputs(stage, cfg, graph, graph.step, k,
+                                           device))
+    copies = {name: copy.deepcopy(graph) for name in ("eager", "eager2",
+                                                      "k1")}
+    for opt in copies["k1"].optimizers():
+        set_capturable(opt, False)
+    inputs = stacked_inputs(stage, cfg, graph, graph.step, k, device)
+    before = (groupnorm.launches, dict(roi_align.launches))
+    got_m = graph.multi_train_step(*inputs)
+    captured = {"K1": groupnorm.launches - before[0],
+                "K2": roi_align.launches["fwd"] - before[1]["fwd"],
+                "K3": roi_align.launches["bwd"] - before[1]["bwd"]}
+    rows = {name: [t.train_step(index_stack(inputs[0], i),
+                                *index_stack(inputs[1], i))
+                   for i in range(k)] for name, t in copies.items()}
+    torch.cuda.synchronize(device)
+    metric_err = max(_relative(float(got_m[name]), float(torch.stack(
+        [r[name].float() for r in rows["eager"]]).mean(0)))
+        for name in got_m)
+    got, want = graph.state_dict(), copies["eager"].state_dict()
+    return {"graph": graph, **copies, "inputs": inputs,
+            "captured": captured, "metric_err": metric_err,
+            "eager_err": state_errors(stage, got, want),
+            "spread": state_errors(stage, copies["eager2"].state_dict(),
+                                   want),
+            "k1_err": state_errors(stage, got, copies["k1"].state_dict())}
+
+
+def agreement(result) -> Dict[str, object]:
+    """The numbers of a ``graph_against_eager`` result, without its
+    tensors (for JSON)."""
+    out = {"metric_err": result["metric_err"],
+           "captured": result["captured"]}
+    for key in ("eager_err", "spread", "k1_err"):
+        e = result[key]
+        out[key] = {"bitwise": e["bitwise"], "max_abs": e["max_abs"],
+                    "rel": e["rel"], "misfits": len(e["misfits"])}
+    return out

@@ -32,7 +32,8 @@ class DamsmTrainer(Trainer):
     """The DAMSM text encoder ``text_enc``, image encoder ``img_enc``, their
     optimisers and the step. ``init_state(generator)`` draws fresh weights
     (on the CPU, then move the trainer); ``core.bridge.load_jax_state``
-    loads a JAX state instead."""
+    loads a JAX state instead. ``multi_train_step(batches, (keep_mask,))``
+    takes K steps on stacked inputs (``train/common.py::MultiStep``)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -88,3 +89,7 @@ class DamsmTrainer(Trainer):
         grads, metrics = self.grads(batch, keep_mask)
         self.apply_grads(grads)
         return metrics
+
+    def step_noise(self, batch: Dict, generator: torch.Generator):
+        """(the text encoder's dropout keep mask,)."""
+        return (self.text_enc.keep_mask(batch["captions"], generator),)

@@ -120,7 +120,9 @@ class GanTrainer(Trainer):
     move the trainer to its device: a seed gives the same weights on every
     device); ``core.bridge.load_jax_state`` loads a JAX state instead.
     ``train_step(batch, z, ca_eps)`` takes one step and returns its metrics
-    as 0-d tensors under the JAX package's names."""
+    as 0-d tensors under the JAX package's names; ``multi_train_step(
+    batches, (z, ca_eps))`` takes K on stacked inputs
+    (``train/common.py::MultiStep``)."""
 
     EMA_DECAY = 0.999
 
@@ -305,6 +307,12 @@ class GanTrainer(Trainer):
         grads, metrics = self.grads(batch, z, ca_eps)
         self.apply_grads(grads)
         return metrics
+
+    def step_noise(self, batch: Dict, generator: torch.Generator):
+        """(z, ca_eps) of ``train_noise``."""
+        noise = train_noise(self.cfg, batch["captions"].shape[0], generator,
+                            generator.device)
+        return noise["z"], noise["ca_eps"]
 
     @torch.no_grad()
     def sample(self, batch: Dict, z: torch.Tensor, ca_eps: torch.Tensor,

@@ -76,7 +76,9 @@ def sample(state, boxes: torch.Tensor, labels: torch.Tensor,
 class ShapeTrainer(Trainer):
     """G, D, the frozen label table, their optimisers and the step.
     ``init_state(generator)`` draws fresh weights (on the CPU, then move
-    the trainer); ``core.bridge.load_jax_state`` loads a JAX state."""
+    the trainer); ``core.bridge.load_jax_state`` loads a JAX state.
+    ``multi_train_step(batches, (z,))`` takes K steps on stacked inputs
+    (``train/common.py::MultiStep``)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -170,6 +172,11 @@ class ShapeTrainer(Trainer):
         grads, metrics = self.grads(batch, z)
         self.apply_grads(grads)
         return metrics
+
+    def step_noise(self, batch: Dict, generator: torch.Generator):
+        """(z of ``shape_noise``,)."""
+        return (shape_noise(self.cfg, batch["labels"].shape[0], generator,
+                            generator.device),)
 
     @torch.no_grad()
     def sample(self, boxes: torch.Tensor, labels: torch.Tensor,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -133,3 +133,47 @@ def device_profile(fn) -> Tuple[float, float, List[Span]]:
     if not spans:
         raise RuntimeError("the profiler saw no device activity")
     return wall_ms, busy_ms(spans), spans
+
+
+def graph_kernel_nodes(raw_graph, names: Sequence[str] = ()
+                       ) -> Tuple[int, int, Dict[str, int]]:
+    """(kernel nodes, all nodes, {name: kernel nodes whose function's name
+    holds it}) of a captured CUDA graph (``raw_cuda_graph()`` of a
+    ``torch.cuda.CUDAGraph(keep_graph=True)``): libcuda's cuGraphGetNodes
+    and cuGraphNodeGetType count the nodes, and the names come from the
+    graph's verbose DOT print (cuGraphDebugDotPrint), one record per
+    node."""
+    import ctypes
+    import re
+    import tempfile
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                        ctypes.c_uint]
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw_graph, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(raw_graph, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    found = {name: 0 for name in names}
+    if names:
+        with tempfile.NamedTemporaryFile(suffix=".dot") as f:
+            if cu.cuGraphDebugDotPrint(raw_graph, f.name.encode(), 1):
+                raise RuntimeError("cuGraphDebugDotPrint failed")
+            text = open(f.name, errors="replace").read()
+        # one node record from each node's name to the next's
+        for record in re.split(r'\n\s*"?graph_\d+_node_\d+"?\s*\[', text):
+            for name in names:
+                found[name] += name in record
+    return kernels, len(nodes), found

@@ -158,32 +158,17 @@ def test_k1_is_bit_reproducible(dev, b, n, c, use_glu):
 
 def _graph_nodes(fn):
     """(kernel nodes, all nodes) of a CUDA graph captured around one call
-    of ``fn`` (libcuda's cuGraphGetNodes and cuGraphNodeGetType)."""
-    import ctypes
+    of ``fn`` (``utils/profiling.py::graph_kernel_nodes``)."""
+    from objgan_tpu_torch.utils.profiling import graph_kernel_nodes
 
     fn()  # first use: build, attributes
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-    count = ctypes.c_size_t(0)
-    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), None,
-                              ctypes.byref(count)) == 0
-    nodes = (ctypes.c_void_p * count.value)()
-    assert cu.cuGraphGetNodes(graph.raw_cuda_graph(), nodes,
-                              ctypes.byref(count)) == 0
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        assert cu.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
-        kinds.append(kind.value)
+    kernels, nodes, _ = graph_kernel_nodes(graph.raw_cuda_graph())
     graph.reset()
-    return kinds.count(0), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels, nodes
 
 
 def test_k1_is_one_kernel_per_call(dev):
@@ -508,3 +493,175 @@ def test_kernels_read_nothing_past_their_inputs(dev):
                              capture_output=True, text=True, timeout=600)
     assert control.returncode != 0
     assert "illegal memory access" in control.stderr
+
+
+# -- K train steps as one CUDA-graph replay (TRAIN.STEPS_PER_EXECUTION) --------
+
+KERNEL_NAMES = {"K1": "gn_fused_kernel", "K2": "roi_fwd_kernel",
+                "K3": "roi_bwd_kernel"}
+
+
+def _tiny_cfg():
+    from objgan_tpu_torch.core.config import tiny_test_config
+
+    return tiny_test_config().merged({"DTYPE": "float32"})
+
+
+K_STAGES = ["gan", "damsm", "box", "shape"]
+
+
+@pytest.mark.parametrize("stage", K_STAGES)
+def test_k_step_graph_equals_eager_steps(dev, stage):
+    """Two steps as one replay against two eager steps with the same
+    (capturable) Adam, in PyTorch's default mode: equal to the bit where
+    two eager runs are, else within the state limits of a restored step
+    (``card_check.STATE_ATOL`` / ``STATE_RTOL``); against Adam as K = 1
+    runs it, within those limits; the metric means equal to the bit with
+    the state, else within 1e-5."""
+    from objgan_tpu_torch.train import card_check
+
+    r = card_check.graph_against_eager(stage, _tiny_cfg(), k=2, device=dev)
+    assert r["graph"].multi_step().graph() is not None
+    assert r["graph"].step == r["eager"].step == r["k1"].step == 4
+    e = r["eager_err"]
+    assert e["bitwise"] or not r["spread"]["bitwise"], e
+    assert not e["misfits"], e
+    assert not r["k1_err"]["misfits"], r["k1_err"]
+    assert r["metric_err"] <= (0.0 if e["bitwise"] else 1e-5), r[
+        "metric_err"]
+
+
+_AGREEMENT = """
+import json, sys
+import torch
+from objgan_tpu_torch.core.config import tiny_test_config
+from objgan_tpu_torch.core.precision import true_fp32
+from objgan_tpu_torch.train import card_check
+true_fp32()
+torch.use_deterministic_algorithms(True)
+cfg = tiny_test_config().merged({"DTYPE": sys.argv[1]})
+print(json.dumps({s: card_check.agreement(card_check.graph_against_eager(
+    s, cfg, 2)) for s in json.loads(sys.argv[2])}))
+"""
+
+
+@pytest.fixture(scope="module")
+def deterministic_agreement():
+    """The four trainers' replays against eager steps at the tiny config
+    in bf16, in a process under ``torch.use_deterministic_algorithms``
+    with cuBLAS's workspace fixed before its first use."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", _AGREEMENT, "bfloat16",
+                           json.dumps(K_STAGES)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("stage", K_STAGES)
+def test_k_step_graph_equals_eager_steps_to_the_bit(dev,
+                                                    deterministic_agreement,
+                                                    stage):
+    """Under deterministic algorithms two eager runs agree to the bit, and
+    the replay equals them: state and metric means. In bf16, where in
+    the default mode two eager runs of Stage C part far past the state
+    limits within two steps (atomics, amplified by the steps)."""
+    r = deterministic_agreement[stage]
+    assert r["spread"]["bitwise"], r
+    assert r["eager_err"]["bitwise"] and r["metric_err"] == 0.0, r
+
+
+def test_k_step_graph_holds_the_kernels(dev):
+    """The tiny Stage-C graph of K = 2 steps holds twice one eager step's
+    K1, K2 and K3 launches as kernel nodes, named in its DOT print, and
+    each wrapper counted them once while the graph was captured."""
+    from objgan_tpu_torch.ops import roi_align
+    from objgan_tpu_torch.train import card_check
+    from objgan_tpu_torch.train.common import index_stack
+    from objgan_tpu_torch.utils.profiling import graph_kernel_nodes
+
+    r = card_check.graph_against_eager("gan", _tiny_cfg(), k=2, device=dev)
+    before = (groupnorm.launches, dict(roi_align.launches))
+    batches, noises = r["inputs"]
+    r["eager"].train_step(index_stack(batches, 0), *index_stack(noises, 0))
+    per_step = {"K1": groupnorm.launches - before[0],
+                "K2": roi_align.launches["fwd"] - before[1]["fwd"],
+                "K3": roi_align.launches["bwd"] - before[1]["bwd"]}
+    assert all(per_step.values()), per_step
+    kernels, nodes, found = graph_kernel_nodes(
+        r["graph"].multi_step().graph().raw_cuda_graph(),
+        list(KERNEL_NAMES.values()))
+    want = {k: 2 * v for k, v in per_step.items()}
+    assert r["captured"] == want
+    assert {k: found[name] for k, name in KERNEL_NAMES.items()} == want
+    assert sum(want.values()) < kernels <= nodes
+
+
+def test_k_step_graph_refuses_a_replaced_trainer(dev):
+    """A restore after the capture (new Adam state tensors) is refused, not
+    replayed against stale memory; so is a new optimiser."""
+    from objgan_tpu_torch.train import card_check
+
+    r = card_check.graph_against_eager("box", _tiny_cfg(), k=2, device=dev)
+    graph = r["graph"]
+    graph.load_state_dict(r["eager"].state_dict())
+    with pytest.raises(RuntimeError, match="replaced after"):
+        graph.multi_train_step(*r["inputs"])
+    r["eager"].multi_train_step(*r["inputs"])  # its warm-up: eager
+    r["eager"].multi_train_step(*r["inputs"])  # captured
+    r["eager"].reset_optimizers()
+    with pytest.raises(RuntimeError, match="replaced after"):
+        r["eager"].multi_train_step(*r["inputs"])
+
+
+def test_k_step_on_a_card_refuses_a_gloo_group(dev):
+    """gloo's collectives run on the host: no graph can hold them, so K > 1
+    on a card under gloo raises instead of running eagerly."""
+    import socket
+
+    import torch.distributed as dist
+
+    from objgan_tpu_torch.train import card_check
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        cfg = _tiny_cfg()
+        trainer = card_check.fresh("box", cfg, dev)
+        inputs = card_check.stacked_inputs("box", cfg, trainer, 0, 2, dev)
+        with pytest.raises(RuntimeError, match="gloo"):
+            trainer.multi_train_step(*inputs)
+        assert trainer.step == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_k_step_loop_on_a_card(dev, tmp_path):
+    """``cli.train_shape`` with K = 2 on the card: two executions (the
+    eager warm-up, then the replay) and the ragged tail's single step,
+    fed by the prefetching thread; saved at the last step, the graph
+    captured, the state finite."""
+    from objgan_tpu_torch import cli
+    from objgan_tpu_torch.core.checkpoint import load_latest
+
+    cfg = _tiny_cfg().merged({"OUTPUT_DIR": str(tmp_path), "TRAIN": {
+        "STEPS_PER_EXECUTION": 2}})
+    trainer = cli.train_shape(cfg, max_steps=5, device=dev, log_every=1)
+    assert trainer.step == 5 and trainer.multi_step().graph() is not None
+    step, sd = load_latest(str(tmp_path / f"{cfg.CONFIG_NAME}_shape"
+                               / "ckpt"))
+    assert step == 5
+    assert all(torch.isfinite(v).all() for v in sd.values()
+               if v.is_floating_point())

@@ -10,6 +10,10 @@ the CPU (one spawn for the file, 1 thread per rank).
   root, which is what Adam's step reads (fp32 holds ~7 digits, and the
   untrained tiny G's moments reach ~3e3, where an absolute 1e-5 is below
   one ulp); the ranks' states bitwise equal.
+* The same two steps as one ``TRAIN.STEPS_PER_EXECUTION`` = 2 execution
+  of each trainer (``tests/torch_ddp_ranks.py::multi_stages``): on the 2
+  ranks against world size 1 within those limits, the ranks bitwise
+  equal, and at world size 1 bitwise the two single steps.
 * The Stage-C and DAMSM steps of the JAX package's state on its global
   batch, against JAX's single-process step (run as
   ``tests/test_torch_train.py`` and ``tests/test_torch_damsm.py`` run it,
@@ -155,6 +159,50 @@ def test_trainer_on_two_ranks_equals_world_size_one(ranks, world_one,
         assert err <= 1e-5 * scale, (k, err, scale)
     if stage == "gan":
         assert res["pixel_err"] < dryrun.PIXEL_ATOL
+
+
+@pytest.fixture(scope="module")
+def multi_one():
+    """The K-step executions of ``multi_stages`` in this process, without a
+    group."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch_ddp_ranks.multi_stages(torch.device("cpu"), WORLD)
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("stage", list(dryrun.STAGES))
+def test_k_step_execution_on_two_ranks_equals_world_size_one(
+        ranks, world_one, multi_one, stage):
+    """``TRAIN.STEPS_PER_EXECUTION`` = 2 under gloo: each rank's one K-step
+    execution against world size 1's, as the single steps are held; at
+    world size 1 it equals the two single steps of ``world_one`` to the
+    bit, and its metrics are their mean."""
+    one, single = multi_one[stage], world_one[stage]
+    for k, v in single["state"].items():
+        assert torch.equal(one["state"][k], v), k
+    for k, v in one["metrics"].items():
+        mean = np.mean([m[k] for m in single["metrics"]], dtype=np.float32)
+        np.testing.assert_allclose(v, mean, rtol=1e-6, err_msg=k)
+    for r in ranks:
+        got = r["multi"][stage]
+        for k, v in one["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= dryrun.METRIC_RTOL * max(
+                abs(v), 1e-12), k
+        for k, want in one["state"].items():
+            g = got["state"][k]
+            if not want.is_floating_point():
+                assert torch.equal(g, want), k
+                continue
+            if k.endswith(".exp_avg_sq"):
+                g, want = g.sqrt(), want.sqrt()
+            scale = max(1.0, float(want.abs().max()))
+            assert float((g.double() - want.double()).abs().max()) <= \
+                1e-5 * scale, k
+    for k, v in ranks[0]["multi"][stage]["state"].items():
+        assert torch.equal(ranks[1]["multi"][stage]["state"][k], v), k
 
 
 def test_stage_c_on_two_ranks_matches_jax(ranks, jax_ref):

@@ -289,7 +289,7 @@ def test_profile_feed_wire_on_cpu(tmp_path, manifest, capsys):
                        "cpu"])
     out = capsys.readouterr().out
     for stage in ("1. record transform", "2. batch assembly",
-                  "3. K-stack: none", "4. host->device (cpu)"):
+                  "3. K=1 stack", "4. host->device (cpu)"):
         assert stage in out, (stage, out)
     # a wire batch of 2: 2 x 64 x 64 x 3 image bytes and 2 x 3 x 16 x 16
     # mask bytes, far below the fp32 pyramid's 2 x (16² + 32² + 64²) x 12

@@ -7,6 +7,7 @@ from typing import Dict
 
 import torch
 
+from objgan_tpu_torch import cli
 from objgan_tpu_torch.losses import damsm_loss as tdl
 from objgan_tpu_torch.losses import gan_loss as tgl
 from objgan_tpu_torch.parallel import dryrun, sharding
@@ -50,12 +51,37 @@ def losses_on_ranks(device, inputs: Dict[str, torch.Tensor], smooth):
             "damsm_grads": list(grads), "damsm_local": local_damsm}
 
 
+def multi_stages(device, world: int):
+    """Each trainer's ``dryrun.K_STEPS`` tiny steps as one
+    ``multi_train_step`` (``TRAIN.STEPS_PER_EXECUTION``) on the dry run's
+    global batches of 2 rows per rank of ``world``: this rank's rows
+    stacked, each step's noise from (RNG_SEED, step). The K-meaned metrics
+    and the state after it (CPU)."""
+    cfg = dryrun.tiny_cfg(2 * world)
+    batches = [dryrun.local_part(dryrun.numpy_batch(
+        cfg, cfg.TRAIN.BATCH_SIZE, 100 + k)) for k in range(dryrun.K_STEPS)]
+    out = {}
+    for stage, cls in dryrun.STAGES.items():
+        trainer = cli.fresh_trainer(cfg, cls(cfg), device)
+        sharding.broadcast_module_(trainer)
+        noises = cli.stack_noise([cli.step_noise(cfg, trainer, b, k, device)
+                                  for k, b in enumerate(batches)])
+        metrics = trainer.multi_train_step(
+            cli.to_device(cli.stack_batches(batches), device), noises)
+        out[stage] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                      "state": {k: v.detach().cpu().clone() for k, v in
+                                trainer.state_dict().items()}}
+    return out
+
+
 def trainers_on_ranks(device, jax_inputs):
     """The four trainers' tiny dry run (``parallel.dryrun.tiny_stages``),
-    and the Stage-C and DAMSM steps of the JAX package's state, batch and
+    the same steps as one K-step execution each (``multi_stages``), and
+    the Stage-C and DAMSM steps of the JAX package's state, batch and
     noise: this rank's rows, gradients averaged over the ranks, metrics
     averaged."""
-    out = {"stages": dryrun.tiny_stages(device, 2)}
+    out = {"stages": dryrun.tiny_stages(device, 2),
+           "multi": multi_stages(device, 2)}
     cfg = jax_inputs["cfg"]
 
     def port_batch(batch):
