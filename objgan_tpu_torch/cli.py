@@ -63,6 +63,7 @@ from objgan_tpu_torch.train.common import (Trainer, index_stack,
 from objgan_tpu_torch.train.damsm import DamsmTrainer
 from objgan_tpu_torch.train.gan import GanTrainer, train_noise
 from objgan_tpu_torch.train.shape import ShapeTrainer, shape_noise
+from objgan_tpu_torch.utils import profiling
 
 # step_generator streams: a step's noise, a synthetic batch, a snapshot's
 _NOISE, _DATA, _SNAPSHOT = 0, 1, 2
@@ -242,7 +243,16 @@ class PrefetchFeed:
     that died silently would leave the loop waiting for good. ``close()``
     ends the thread. ``feed`` stays the caller's, as at K = 1: a worker
     feed's workers, and with the last of them the fork server, stop when
-    the caller closes or drops it."""
+    the caller closes or drops it.
+
+    Spans (``utils/profiling.py``, recorded while the loop's thread runs
+    under a profiler): ``feed.wait`` on the consumer's thread, from asking
+    for the next item to holding it, the stream's wait for its copy
+    included; ``feed.produce`` on the producer's thread, from the first
+    pull of a stack's K batches to the stack shipped (stacked, pinned, its
+    copy issued, its noise drawn, its ready event recorded), the wait for
+    room in the queue left out. The loop starts the recorder's buffer
+    anew (``profiling.restart``)."""
 
     def __init__(self, feed: Iterator[Dict], k: int, start: int,
                  noise: Callable[[Dict, int], tuple], device,
@@ -258,6 +268,7 @@ class PrefetchFeed:
             self._stream.wait_stream(torch.cuda.current_stream(self._device))
         self._q = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
+        profiling.restart()
         self._thread = threading.Thread(target=self._produce, daemon=True,
                                         name="prefetch-feed")
         self._thread.start()
@@ -308,6 +319,8 @@ class PrefetchFeed:
 
         it = iter(self._feed)
         while not self._stop.is_set():
+            if not pending:
+                produce = profiling.side_span("feed.produce", self._k)
             try:
                 batch = next(it)
             except StopIteration:
@@ -317,7 +330,9 @@ class PrefetchFeed:
                     return
             pending.append(batch)
             if len(pending) == self._k:
-                if not self._put(("exec", self._ship(pending, step))):
+                item = ("exec", self._ship(pending, step))
+                produce.close()
+                if not self._put(item):
                     return
                 step += self._k
                 pending = []
@@ -335,19 +350,20 @@ class PrefetchFeed:
 
     def __iter__(self):
         while True:
-            kind, val = self._get()
+            with profiling.span("feed.wait"):
+                kind, val = self._get()
+                if kind == "exec":
+                    batches, noises, ready = val
+                    if ready is not None:
+                        current = torch.cuda.current_stream(self._device)
+                        current.wait_event(ready)
+                        for t in tensor_leaves((batches, noises)):
+                            t.record_stream(current)
+                    val = (batches, noises)
             if kind == "end":
                 return
             if kind == "error":
                 raise RuntimeError("prefetch feed failed") from val
-            if kind == "exec":
-                batches, noises, ready = val
-                if ready is not None:
-                    current = torch.cuda.current_stream(self._device)
-                    current.wait_event(ready)
-                    for t in tensor_leaves((batches, noises)):
-                        t.record_stream(current)
-                val = (batches, noises)
             yield kind, val
 
     def close(self, timeout: float = 60.0) -> None:
@@ -385,7 +401,8 @@ def _run_loop(cfg: Config, trainer: Trainer, feed: Iterator[Dict],
     when unset): ``step % SNAPSHOT_STEPS < K``, from the first multiple
     on, JAX's rule; and a checkpoint at the end. A step already saved is
     not written again. Rank 0 alone writes rows, checkpoints and
-    snapshots."""
+    snapshots. A row is the span ``loop.row`` (its synchronise included;
+    ``utils/profiling.py``)."""
     k = max(1, cfg.TRAIN.STEPS_PER_EXECUTION)
     log_every = max(log_every, k)
     step = trainer.step
@@ -394,11 +411,13 @@ def _run_loop(cfg: Config, trainer: Trainer, feed: Iterator[Dict],
 
     def log(metrics):
         nonlocal last_logged, t_last, logged_any
-        vals = {k: float(v) for k, v in metrics.items()}  # synchronises
-        now = time.monotonic()
-        vals["steps_per_sec"] = (step - last_logged) / max(now - t_last, 1e-9)
-        last_logged, t_last, logged_any = step, now, True
-        writer.write(step, vals)
+        with profiling.span("loop.row"):
+            vals = {k: float(v) for k, v in metrics.items()}  # synchronises
+            now = time.monotonic()
+            vals["steps_per_sec"] = (step - last_logged) / max(now - t_last,
+                                                               1e-9)
+            last_logged, t_last, logged_any = step, now, True
+            writer.write(step, vals)
 
     def after(metrics):
         if (step - last_logged >= log_every or not logged_any

@@ -26,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from objgan_tpu_torch.parallel import sharding
+from objgan_tpu_torch.utils import profiling
 
 _ADAM_KEYS = ("step", "exp_avg", "exp_avg_sq")
 
@@ -270,7 +271,12 @@ class MultiStep:
     restore, ``reset_optimizers``, ``.to``) raises, as does a call whose
     shapes differ from the first call's (``fits`` asks first), a capture
     that fails, and K > 1 on a card under a gloo group, whose collectives
-    no graph can hold. A copy of the trainer starts without a graph."""
+    no graph can hold. A copy of the trainer starts without a graph.
+
+    Each call is the span ``exec`` (``utils/profiling.py``), with
+    ``steps`` K, and on a card its replay's device time, between two
+    timing events on the current stream; each capture sets the counter
+    ``exec.graph_nodes``, the graph's nodes over K."""
 
     def __init__(self, trainer: Trainer):
         self.trainer = trainer
@@ -305,25 +311,30 @@ class MultiStep:
                              "steps")
         self._layout = _layout((batches, noises))
         device = next(self.trainer.parameters()).device
-        if device.type != "cuda":
-            return self._loop(batches, noises)
-        if not self._warm:
-            return self._warm_up(batches, noises, device)
-        if self._fingerprint != self._take_fingerprint():
-            raise RuntimeError(
-                "the trainer's tensors were replaced after its K-step CUDA "
-                "graph was captured (a restore, reset_optimizers, .to or "
-                "load_state_dict): the graph would read stale memory; make "
-                "a new trainer, or restore before the first K-step call")
-        if self._graph is None:
-            self._capture(batches, noises, device)
-        for dst, src in zip(tensor_leaves(self._static),
-                            tensor_leaves((batches, noises))):
-            dst.copy_(src)
-        start = self.trainer.step
-        self._graph.replay()
-        self.trainer.step = start + self._k(batches)
-        return dict(zip(self._keys, self._out.clone().unbind()))
+        k = self._k(batches)
+        with profiling.span("exec", k) as span:
+            if device.type != "cuda":
+                return self._loop(batches, noises)
+            if not self._warm:
+                return self._warm_up(batches, noises, device)
+            if self._fingerprint != self._take_fingerprint():
+                raise RuntimeError(
+                    "the trainer's tensors were replaced after its K-step "
+                    "CUDA graph was captured (a restore, reset_optimizers, "
+                    ".to or load_state_dict): the graph would read stale "
+                    "memory; make a new trainer, or restore before the "
+                    "first K-step call")
+            if self._graph is None:
+                self._capture(batches, noises, device)
+            for dst, src in zip(tensor_leaves(self._static),
+                                tensor_leaves((batches, noises))):
+                dst.copy_(src)
+            start = self.trainer.step
+            span.device_start()
+            self._graph.replay()
+            span.device_end()
+            self.trainer.step = start + k
+            return dict(zip(self._keys, self._out.clone().unbind()))
 
     @staticmethod
     def _k(batches: Dict) -> int:
@@ -389,3 +400,5 @@ class MultiStep:
             self.trainer.step = start
         self._keys = list(means)
         self._graph = graph
+        profiling.count("exec.graph_nodes", round(profiling.graph_nodes(
+            graph.raw_cuda_graph()) / self._k(batches)))

@@ -606,6 +606,45 @@ def test_k_step_graph_holds_the_kernels(dev):
     assert sum(want.values()) < kernels <= nodes
 
 
+def test_k_step_replay_spans_on_a_card(dev):
+    """The program's record of a K = 2 replay of the tiny Stage C: the
+    capture's counter ``exec.graph_nodes`` is the graph's nodes over K;
+    under the profiler the ``exec`` span's device time is above 0 and
+    within the host's wall between the synchronises around it, and its
+    range on the device's timeline is a user annotation, which the
+    benchmark's kernel union (``h100bench/trace.py``) and
+    ``device_profile`` leave out."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from objgan_tpu_torch.train import card_check
+    from objgan_tpu_torch.utils import profiling
+
+    cfg = _tiny_cfg()
+    trainer = card_check.fresh("gan", cfg, dev)
+    inputs = card_check.stacked_inputs("gan", cfg, trainer, 0, 2, dev)
+    trainer.multi_train_step(*inputs)  # eager
+    trainer.multi_train_step(*inputs)  # captured, then replayed
+    nodes = profiling.graph_kernel_nodes(
+        trainer.multi_step().graph().raw_cuda_graph())[1]
+    assert profiling.recorded()["counters"]["exec.graph_nodes"] == round(
+        nodes / 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.multi_train_step(*inputs)
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    [span] = [s for s in profiling.recorded()["spans"] if s["name"] == "exec"]
+    assert span["steps"] == 2
+    assert 0 < span["device_ms"] <= wall_ms, (span["device_ms"], wall_ms)
+    on_device = [e for e in prof.events() if e.name == "exec"
+                 and e.device_type == torch.autograd.DeviceType.CUDA]
+    assert all(e.is_user_annotation for e in on_device)
+
+
 def test_k_step_graph_refuses_a_replaced_trainer(dev):
     """A restore after the capture (new Adam state tensors) is refused, not
     replayed against stale memory; so is a new optimiser."""
