@@ -275,11 +275,19 @@ CAPTIONS = [f"{s} {p}" for p in _SCENES for s in _SUBJECTS]  # 35
 
 K1_SOURCE = "objgan_tpu_torch/csrc/groupnorm.cu"
 K1_REPLACES = "objgan_tpu/ops/groupnorm.py:88"
+# no TPU kernel: JAX differentiates its reference (custom_vjp backward)
+K1B_REPLACES = "objgan_tpu/ops/groupnorm.py:332"
 ROI_SOURCE = "objgan_tpu_torch/csrc/roi_align.cu"
 K2_REPLACES = "objgan_tpu/ops/roi_align.py:107"
 K3_REPLACES = "objgan_tpu/ops/roi_align.py:132"
 FP32_ATOL = 1e-4
 BF16_ATOL, BF16_RTOL = 3e-2, 2e-2
+# K1 backward's dscale and dbias, fp32 sums over B * N rows: within this
+# share of their largest magnitude (at least 1) of the twin's VJP in fp64
+# (measured on an H100: at most 2.8e-7 on a train step's calls); under GLU
+# in bf16, where a, g and the sigmoid are rounded to bf16 as the forward
+# rounds them, within K1's bf16 tolerances so scaled (measured 8.3e-3)
+PARAM_RTOL = 1e-4
 # K2/K3 in bf16: fp32 sums in another order, one rounding to bf16 (a step
 # of at most 2^-8 relative) on both sides
 ROI_BF16_ATOL, ROI_BF16_RTOL = 1e-2, 1e-2
@@ -647,6 +655,172 @@ def _check_k1(phase, records, per):
     return max_err, tot
 
 
+def _check_k1_bwd(phase, calls, per, timed=False):
+    """Replays each recorded K1 backward call (``_record_train_step``'s:
+    the arguments and the needs flags) through the kernel twice, held
+    bitwise equal, and against the twin's VJP in fp64 on the card: dx at
+    K1's tolerances, dscale and dbias as PARAM_RTOL says. With ``timed``,
+    times each distinct call (one and ten per graph, eager), the twin's
+    VJP and, without GLU, aten's ``native_group_norm_backward`` on
+    channels-first copies (its layout; GLU has no library backward),
+    against the bound (x, dy read once, dx, dscale, dbias written once;
+    12 operations an element), and all the calls in one graph. Returns
+    (max dx error, largest dscale/dbias error over its magnitude, without
+    GLU in bf16 and with it, totals over the calls: the work of one
+    ``per``, with bf16 dx's largest error in bf16 ulps of the fp64 value
+    under "dx_ulps", over the elements where rtol sets the limit)."""
+    import torch
+
+    from objgan_tpu_torch.ops.groupnorm import (
+        bwd_plan_for, group_norm_backward_cuda, group_norm_backward_reference)
+
+    log(phase, f"recorded {len(calls)} K1 backward calls of one {per}; "
+        f"against the twin's VJP in fp64: dx fp32 atol {FP32_ATOL}, bf16 "
+        f"atol {BF16_ATOL} rtol {BF16_RTOL}; dscale, dbias {PARAM_RTOL} of "
+        f"their largest magnitude (bf16 GLU: atol {BF16_ATOL} of it, rtol "
+        f"{BF16_RTOL}); each call run twice and held bitwise equal")
+    dx_err, dx_ulps, param_err = 0.0, 0.0, {"plain": 0.0, "bf16_glu": 0.0}
+    shapes = {}
+    for args, needs in calls:
+        x3, scale, bias, groups, eps, glu, gy = args
+        bf16_glu = glu and x3.dtype == torch.bfloat16
+        key = (tuple(x3.shape), str(x3.dtype).replace("torch.", ""), groups,
+               glu, needs)
+        got = group_norm_backward_cuda(*args, needs=needs)
+        again = group_norm_backward_cuda(*args, needs=needs)
+        check(all((g is None) == (not w) for g, w in zip(got, needs)),
+              f"K1 backward {key} returned {[g is None for g in got]}")
+        check(all(g is None or torch.equal(g, a) for g, a in zip(got, again)),
+              f"K1 backward is not bit-reproducible at {key}")
+        want = group_norm_backward_reference(
+            x3.double(), scale.double(), bias.double(), groups, eps, glu,
+            gy.double(), needs)
+        errs = {}
+        for name, g, w in zip(("dx", "dscale", "dbias"), got, want):
+            if g is None:
+                continue
+            err = (g.double() - w).abs()
+            if name == "dx":
+                limit = (FP32_ATOL if x3.dtype == torch.float32 else
+                         BF16_ATOL + BF16_RTOL * w.abs())
+                errs[name] = float(err.max())
+                big = w.abs() >= BF16_ATOL / BF16_RTOL
+                if x3.dtype == torch.bfloat16 and bool(big.any()):
+                    dx_ulps = max(dx_ulps, float(
+                        (err[big] / bf16_ulp(w[big])).max()))
+            else:
+                span = max(1.0, float(w.abs().max()))
+                limit = (BF16_ATOL * span + BF16_RTOL * w.abs() if bf16_glu
+                         else PARAM_RTOL * span)
+                errs[name] = float(err.max()) / span
+            check(not bool((err > limit).any()), f"K1 backward vs twin in "
+                  f"fp64 {key}: {name} max err {float(err.max()):.3g}")
+        dx_err = max(dx_err, errs.get("dx", 0.0))
+        which = "bf16_glu" if bf16_glu else "plain"
+        param_err[which] = max([param_err[which]] + [
+            v for k, v in errs.items() if k != "dx"])
+        entry = shapes.setdefault(key, {"count": 0, "args": args, "err": {}})
+        entry["count"] += 1
+        for k, v in errs.items():
+            entry["err"][k] = max(entry["err"].get(k, 0.0), v)
+    tot = {"ms": 0.0, "ms_10_per_graph": 0.0, "eager_ms": 0.0,
+           "plain_ms": 0.0, "plain_eager_ms": 0.0, "library_ms": 0.0,
+           "library_calls": 0, "bound_ms": 0.0, "kernels": 0,
+           "regimes": {}, "dx_ulps": dx_ulps}
+    if not timed:
+        log(phase, f"all {len(calls)} calls agree and are bit-reproducible: "
+            f"max dx err {dx_err:.3g} ({dx_ulps:.2f} bf16 ulp in bf16), "
+            f"dscale/dbias err over magnitude "
+            f"{param_err['plain']:.3g} ({param_err['bf16_glu']:.3g} bf16 "
+            f"GLU)")
+        return dx_err, param_err, tot
+    for key, s in shapes.items():
+        args, needs = s["args"], key[-1]
+        x3, scale, bias, groups, eps, glu, gy = args
+        (b, n, c), dt = key[0], key[1]
+
+        def call(args=args, needs=needs):
+            return group_norm_backward_cuda(*args, needs=needs)
+
+        plan = bwd_plan_for(x3, gy.contiguous(), glu, needs)
+        kernels, nodes = graph_kernels(call)
+        check(kernels == nodes == 1 + plan.params, f"one K1 backward call "
+              f"{key} captured {kernels} kernels in {nodes} graph nodes")
+        k_ms, k_eager = time_ms(call)
+        k_ten, _ = time_ms(call, calls=10)
+        p_ms, p_eager = time_ms(
+            lambda: group_norm_backward_reference(*args, needs))
+        lib = "none (GLU)"
+        l_ms = 0.0
+        if not glu:
+            # aten's kernel on (B, C, N) copies, scale and bias in x's dtype
+            xc = x3.permute(0, 2, 1).contiguous()
+            gc = gy.permute(0, 2, 1).contiguous()
+            w = scale.to(x3.dtype)
+            _, mean, rstd = torch.ops.aten.native_group_norm(
+                xc, w, bias.to(x3.dtype), b, c, n, groups, eps)
+
+            def library(xc=xc, gc=gc, w=w, mean=mean, rstd=rstd):
+                return torch.ops.aten.native_group_norm_backward(
+                    gc, xc, mean, rstd, w, b, c, n, groups, list(needs))
+
+            l_ms, _ = time_ms(library)
+            lib = f"{1000 * l_ms:.1f} us"
+            lib_dx = library()[0]
+            if lib_dx is not None:
+                ref = group_norm_backward_reference(
+                    x3.double(), scale.double(), bias.double(), groups, eps,
+                    glu, gy.double(), needs)[0]
+                lib_err = (lib_dx.permute(0, 2, 1).double() - ref).abs()
+                lib += f" (dx max err {float(lib_err.max()):.3g})"
+            tot["library_calls"] += s["count"]
+        itemsize = x3.element_size()
+        nbytes = (x3.numel() * itemsize * (1 + needs[0])
+                  + gy.numel() * itemsize + 4 * c * (1 + needs[1] + needs[2]))
+        b_ms, _ = bound_ms(nbytes, 12 * x3.numel())
+        cnt = s["count"]
+        for k, v in (("ms", k_ms), ("ms_10_per_graph", k_ten),
+                     ("eager_ms", k_eager), ("plain_ms", p_ms),
+                     ("plain_eager_ms", p_eager), ("library_ms", l_ms),
+                     ("bound_ms", b_ms)):
+            tot[k] += cnt * v
+        tot["kernels"] += cnt * kernels
+        tot["regimes"][plan.regime] = tot["regimes"].get(plan.regime, 0) + cnt
+        log(phase, f"(B={b}, N={n}, C={c}) {dt} "
+            f"{'GN+GLU' if glu else 'GN'} needs "
+            f"{''.join('x' if w else '-' for w in needs)} x{cnt}: "
+            f"{plan.regime} cluster {plan.cluster}, {plan.res_rows}/"
+            f"{plan.rows} rows kept, {kernels} kernels | err " + ", ".join(
+                f"{k} {v:.3g}" for k, v in s["err"].items())
+            + f" (dscale, dbias over their magnitude) | one call per graph: "
+            f"{1000 * k_ms:.1f} us, ten per graph {1000 * k_ten:.1f} us, "
+            f"bound {1000 * b_ms:.1f} us, twin's VJP {1000 * p_ms:.1f} us, "
+            f"native_group_norm_backward {lib} | eager {1000 * k_eager:.1f} "
+            f"us, twin {1000 * p_eager:.1f} us")
+
+    def every_call():
+        for args, needs in calls:
+            group_norm_backward_cuda(*args, needs=needs)
+
+    all_ms, _ = time_ms(every_call, reps=10)
+    tot["all_in_one_graph_ms"] = all_ms
+    log(phase, f"all {len(calls)} calls agree and are bit-reproducible: max "
+        f"dx err {dx_err:.3g} ({dx_ulps:.2f} bf16 ulp in bf16), dscale/dbias "
+        f"err over magnitude "
+        f"{param_err['plain']:.3g} ({param_err['bf16_glu']:.3g} bf16 GLU); "
+        f"{tot['kernels']} kernels; regimes " + ", ".join(
+            f"{k} {v}" for k, v in sorted(tot["regimes"].items())))
+    log(phase, f"per {per}, device, one call per graph: K1 backward "
+        f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f} %), twin's VJP "
+        f"{tot['plain_ms']:.3f} ms; ten per graph {tot['ms_10_per_graph']:.3f}"
+        f" ms; all {len(calls)} in one graph {all_ms:.3f} ms; eager "
+        f"{tot['eager_ms']:.3f} ms vs twin {tot['plain_eager_ms']:.3f} ms; "
+        f"native_group_norm_backward on the {tot['library_calls']} calls "
+        f"without GLU {tot['library_ms']:.3f} ms")
+    return dx_err, param_err, tot
+
+
 def phase_stages(cfg, vocab, pipe):
     """Synchronised wall time of each stage of one batch, median of 3."""
     import torch
@@ -727,17 +901,21 @@ def phase_small():
         f"(atol 1e-3)")
 
 
+# the kernels whose wrappers count their calls, in ``_counts``' order
+COUNTED = ("K1", "K2", "K3", "K1 backward")
+
+
 def _counts():
     from objgan_tpu_torch.ops import groupnorm, roi_align
 
     return (groupnorm.launches, roi_align.launches["fwd"],
-            roi_align.launches["bwd"])
+            roi_align.launches["bwd"], groupnorm.bwd_launches)
 
 
 def _reset_counts():
     from objgan_tpu_torch.ops import groupnorm, roi_align
 
-    groupnorm.launches = 0
+    groupnorm.launches = groupnorm.bwd_launches = 0
     roi_align.launches.update(fwd=0, bwd=0)
 
 
@@ -799,7 +977,7 @@ def phase_train(cfg):
             trainer = cli.train_gan(cfg, max_steps=TRAIN_STEPS,
                                     device="cuda", log_every=1)
         torch.cuda.synchronize()
-        k1, k2, k3 = _counts()
+        k1, k2, k3, k1b = _counts()
         wall_s = time.monotonic() - t0
     finally:
         hook.remove()
@@ -820,6 +998,10 @@ def phase_train(cfg):
     check(k2 == 3 * roi_per_call * TRAIN_STEPS and k3 == 3 * TRAIN_STEPS,
           f"K2 launched {k2}, K3 {k3} times in {TRAIN_STEPS} steps (expected "
           f"{3 * roi_per_call} and 3 per step)")
+    # every GroupNorm of a train step takes a gradient: one K1 backward call
+    # per K1 launch
+    check(k1b == k1, f"K1 backward called {k1b} times for {k1} K1 launches "
+          f"in {TRAIN_STEPS} steps")
     bad = [k for m in seen for k, v in m.items() if not math.isfinite(v)]
     check(not bad, f"non-finite metrics: {sorted(set(bad))}")
     moved = {}
@@ -835,7 +1017,7 @@ def phase_train(cfg):
         + ", ".join(f"{k} {v}" for k, v in moved.items()) + ")")
     log("train", f"launches in {TRAIN_STEPS} steps: K1 {k1} (= {gn_calls} "
         f"GroupNorm calls, {k1 // TRAIN_STEPS} per step), K2 {k2}, K3 {k3} "
-        f"({objd_calls} ObjectDNet calls)")
+        f"({objd_calls} ObjectDNet calls); K1 backward calls {k1b}")
     log("train", "synchronised ms per step (train_gan's steps_per_sec): "
         + ", ".join(f"{t:.1f}" for t in times) + f"; median after the first "
         f"{median:.1f} ms ({cfg.TRAIN.BATCH_SIZE * 1000.0 / median:.1f} "
@@ -848,23 +1030,21 @@ def phase_train(cfg):
                            "gan_metrics.csv")) as f:
         rows = [{k: float(v) for k, v in row.items()}
                 for row in csv.DictReader(f)]
-    return trainer, {"k1": k1, "k2": k2, "k3": k3, "ms": median,
+    return trainer, {"k1": k1, "k2": k2, "k3": k3, "k1 backward": k1b,
+                     "ms": median,
                      "k1_per_step": k1 // TRAIN_STEPS, "rows": rows}
 
 
 def phase_train_profile(cfg, trainer):
     """One steady train step under torch.profiler: how busy the device is
     and which kernels take its time (the profiler's own overhead is in the
-    wall time, so the busy share is a lower bound). Then every GroupNorm
-    backward of one step (the twin's VJP, which has no kernel yet) is
-    replayed alone under the profiler."""
+    wall time, so the busy share is a lower bound)."""
     import collections
     import re
 
     import torch
 
     from objgan_tpu_torch.data.synthetic import synthetic_batch
-    from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.train.gan import train_noise
     from objgan_tpu_torch.utils.profiling import device_profile
 
@@ -885,6 +1065,7 @@ def phase_train_profile(cfg, trainer):
         by_name[name][1] += 1
         group = ("K1 GroupNorm" if re.search(
                      "gn_fused_kernel", name) else
+                 "K1 backward" if re.search("gn_bwd", name) else
                  "K2 ROI-align fwd" if re.search("roi_fwd_kernel", name) else
                  "K3 ROI-align bwd" if re.search("roi_bwd_kernel", name) else
                  "conv / matmul" if re.search(
@@ -906,32 +1087,6 @@ def phase_train_profile(cfg, trainer):
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:10]:
         log("profile", f"  {ms:8.3f} ms x{count:4d}  {name[:90]}")
-
-    gn_bwd = groupnorm.group_norm_backward_reference
-    calls = []
-
-    def recording(*args, **kwargs):
-        calls.append((args, kwargs))
-        return gn_bwd(*args, **kwargs)
-
-    groupnorm.group_norm_backward_reference = recording
-    try:
-        step()
-        torch.cuda.synchronize()
-    finally:
-        groupnorm.group_norm_backward_reference = gn_bwd
-
-    def replay():
-        for args, kwargs in calls:
-            gn_bwd(*args, **kwargs)
-
-    replay()  # warm-up
-    r_wall, r_busy, r_spans = device_profile(replay)
-    log("profile", f"GroupNorm backward (the twin's VJP, statistics "
-        f"recomputed) of one step replayed alone: {len(calls)} calls, "
-        f"{len(r_spans)} device activities, device busy {r_busy:.1f} ms "
-        f"({r_busy / busy_ms:.2f} of the step's), wall {r_wall:.1f} ms "
-        f"under the profiler")
 
 
 def _roi_requested(name, boxes, f_shape, out_size, q, itemsize):
@@ -974,15 +1129,24 @@ def _roi_requested(name, boxes, f_shape, out_size, q, itemsize):
 def _record_train_step(cfg, trainer, batch=None):
     """One full-width train step on ``batch`` (a synthetic one when None)
     with every kernel call's input copied: (K1 records as ``_record_gn``
-    makes them, K2 calls, K3 calls, the batch's padded-object mask)."""
+    makes them, K2 calls, K3 calls, the batch's padded-object mask, K1
+    backward calls as ``_check_k1_bwd`` takes them)."""
     import torch
 
     from objgan_tpu_torch.data.synthetic import synthetic_batch
+    from objgan_tpu_torch.ops import groupnorm
     from objgan_tpu_torch.ops import roi_align as ra
     from objgan_tpu_torch.train.gan import train_noise
 
-    fwd, bwd = [], []
+    fwd, bwd, gn_bwd = [], [], []
     orig = ra.roi_align_cuda, ra.roi_align_backward_cuda
+    orig_gn_bwd = groupnorm.group_norm_backward_cuda
+
+    def rec_gn_bwd(*args, needs=(True, True, True)):
+        # scale and bias too: Adam updates them in place after the backward
+        gn_bwd.append((tuple(a.detach().clone() if torch.is_tensor(a) else a
+                             for a in args), tuple(needs)))
+        return orig_gn_bwd(*args, needs=needs)
 
     def rec_fwd(features, boxes, out_size, q):
         fwd.append((features.detach().clone(), boxes.clone(), out_size, q))
@@ -998,14 +1162,16 @@ def _record_train_step(cfg, trainer, batch=None):
     noise = train_noise(cfg, cfg.TRAIN.BATCH_SIZE, gen, "cuda")
     gn, hooks = _record_gn(trainer)
     ra.roi_align_cuda, ra.roi_align_backward_cuda = rec_fwd, rec_bwd
+    groupnorm.group_norm_backward_cuda = rec_gn_bwd
     try:
         trainer.train_step(batch, noise["z"], noise["ca_eps"])
         torch.cuda.synchronize()
     finally:
         ra.roi_align_cuda, ra.roi_align_backward_cuda = orig
+        groupnorm.group_norm_backward_cuda = orig_gn_bwd
         for h in hooks:
             h.remove()
-    return gn, fwd, bwd, batch["obj_valid"] == 0
+    return gn, fwd, bwd, batch["obj_valid"] == 0, gn_bwd
 
 
 def phase_roi(fwd, bwd, pad):
@@ -1191,9 +1357,10 @@ def _small_step(phase, stage, what, counts):
 
 def phase_small_train():
     """A tiny fp32 train step, GPU (kernels) against CPU (twins)."""
-    rose = _small_step("small_train", "gan", "train step (K1, K2, K3)",
-                       _counts)
-    check(all(n > 0 for n in rose), f"K1/K2/K3 launches on the GPU: {rose}")
+    rose = _small_step("small_train", "gan",
+                       "train step (K1, K2, K3, K1 backward)", _counts)
+    check(all(n > 0 for n in rose), f"K1/K2/K3/K1 backward launches on the "
+          f"GPU: {rose}")
 
 
 def _differing(a, b):
@@ -1258,7 +1425,7 @@ def phase_damsm():
                                      device="cuda", log_every=1,
                                      ixtoword=vocab.ixtoword)
     torch.cuda.synchronize()
-    k1 = groupnorm.launches
+    k1, k1b = groupnorm.launches, groupnorm.bwd_launches
     wall_s = time.monotonic() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     out_dir = os.path.join(tmp, f"{cfg.CONFIG_NAME}_damsm")
@@ -1270,9 +1437,10 @@ def phase_damsm():
     check(not bad, f"non-finite metrics: {sorted(set(bad))}")
     check(grids == ["attn_step3.png", "attn_step6.png"],
           f"attention grids {grids}")
-    check(n_gn == 8 and k1 == n_gn * (DAMSM_STEPS + len(grids)),
-          f"K1 launched {k1} times for {DAMSM_STEPS} steps and "
-          f"{len(grids)} snapshots of {n_gn} GroupNorms")
+    check(n_gn == 8 and k1 == n_gn * (DAMSM_STEPS + len(grids))
+          and k1b == n_gn * DAMSM_STEPS,
+          f"K1 launched {k1} times, K1 backward {k1b}, for {DAMSM_STEPS} "
+          f"steps and {len(grids)} snapshots of {n_gn} GroupNorms")
     moved = {}
     for name, net in (("text", trainer.text_enc), ("image", trainer.img_enc)):
         prefix = "text_enc." if name == "text" else "img_enc."
@@ -1291,7 +1459,8 @@ def phase_damsm():
         f"{moved['text']}, image {moved['image']}); checkpoints at steps "
         f"{steps}; grids {', '.join(grids)}")
     log("damsm", f"K1 launches {k1} = {n_gn} GroupNorms x ({DAMSM_STEPS} "
-        f"steps + {len(grids)} snapshots), {n_gn} per step")
+        f"steps + {len(grids)} snapshots), {n_gn} per step; K1 backward "
+        f"calls {k1b} (the snapshots take no gradient)")
     log("damsm", "synchronised ms per step of the loop (host feed + "
         "device step; train loop's steps_per_sec): " + ", ".join(
             f"{t:.1f}" for t in times) + f"; median of steps 2-"
@@ -1335,6 +1504,7 @@ def phase_damsm():
     groups = collections.defaultdict(float)
     for a, b_, name in spans:
         groups["K1 GroupNorm" if "gn_fused_kernel" in name else
+               "K1 backward" if "gn_bwd" in name else
                "conv / matmul" if re.search(
                    "conv|gemm|xmma|cudnn|cutlass|wgrad|dgrad|fprop|sm90",
                    name, re.I) else
@@ -1371,7 +1541,7 @@ def phase_damsm():
                             device="cuda", log_every=1,
                             ixtoword=vocab.ixtoword)
     torch.cuda.synchronize()
-    k1_gan, k2, k3 = _counts()
+    k1_gan, k2, k3, _ = _counts()
     text = out.getvalue()
     check(f"loaded pretrained DAMSM encoders from {ckpt_dir} (step "
           f"{DAMSM_STEPS})" in text, "train_gan did not load NET_E")
@@ -1394,7 +1564,7 @@ def phase_damsm():
         f"equal the checkpoint's; launches K1 {k1_gan}, K2 {k2}, K3 {k3}")
     del gan, gan_sd, saved
     shutil.rmtree(tmp, ignore_errors=True)
-    return trainer, batch, keep, k1
+    return trainer, batch, keep, (k1, k1b)
 
 
 def phase_damsm_k1(trainer, batch, keep):
@@ -1548,7 +1718,7 @@ def phase_box(out_dir):
     del seed
     trainer, seen, counts, _, wall_s, peak_gb = _run_stage(
         "box", cli.train_box, cfg, feed, steps)
-    check(counts == (0, 0, 0), f"Stage A launched kernels {counts}")
+    check(counts == (0, 0, 0, 0), f"Stage A launched kernels {counts}")
     moved = _check_moved("box", before, trainer, ("model.encoder.",
                                                   "model.decoder."))
     ckpt_dir = os.path.join(out_dir, "coco_objgan_box", "ckpt")
@@ -1660,11 +1830,12 @@ def phase_shape(out_dir):
     del seed
     trainer, seen, counts, calls, wall_s, peak_gb = _run_stage(
         "shape", cli.train_shape, cfg, feed, steps, (FusedGroupNorm,))
-    k1 = counts[0]
-    check(k1 == 11 * steps and k1 == calls[FusedGroupNorm],
-          f"K1 launched {k1} times for {calls[FusedGroupNorm]} GroupNorm "
-          f"calls in {steps} steps (expected 11 per step)")
-    check(counts[1:] == (0, 0), f"Stage B launched K2/K3 {counts[1:]}")
+    k1, k1b = counts[0], counts[3]
+    check(k1 == 11 * steps and k1 == calls[FusedGroupNorm] == k1b,
+          f"K1 launched {k1} times, K1 backward {k1b}, for "
+          f"{calls[FusedGroupNorm]} GroupNorm calls in {steps} steps "
+          f"(expected 11 per step)")
+    check(counts[1:3] == (0, 0), f"Stage B launched K2/K3 {counts[1:3]}")
     moved = _check_moved("shape", before, trainer, ("g.", "d."))
     ckpt_dir = os.path.join(out_dir, "coco_objgan_shape", "ckpt")
     batch = cli.to_device(next(feed), "cuda")
@@ -1682,7 +1853,8 @@ def phase_shape(out_dir):
         f"{seen[-1]['shape_g']:.4g}); every parameter tensor moved "
         f"({moved})")
     log("shape", f"launches in {steps} steps: K1 {k1} (= "
-        f"{calls[FusedGroupNorm]} GroupNorm calls, {k1 // steps} per step)")
+        f"{calls[FusedGroupNorm]} GroupNorm calls, {k1 // steps} per step), "
+        f"K1 backward calls {k1b}")
     log("shape", "synchronised ms per step of the loop (host feed + device "
         "step; steps_per_sec): " + ", ".join(f"{t:.1f}" for t in times)
         + f"; median of steps 2-{steps} {loop_ms:.1f} ms; peak memory "
@@ -1707,6 +1879,7 @@ def phase_shape(out_dir):
     groups = collections.defaultdict(float)
     for a, b_, name in spans:
         groups["K1 GroupNorm" if "gn_fused_kernel" in name else
+               "K1 backward" if "gn_bwd" in name else
                "conv / matmul" if re.search(
                    "conv|gemm|xmma|cudnn|cutlass|wgrad|dgrad|fprop|sm90",
                    name, re.I) else
@@ -1737,7 +1910,8 @@ def phase_shape(out_dir):
           and metrics["n_objects"] > 0, "bad shape evaluation metrics")
     log("shape", "cli.eval_shape on 2 batches: " + ", ".join(
         f"{k} {v:.4g}" for k, v in sorted(metrics.items())))
-    return trainer, batch, z, {"k1": k1, "ms": loop_ms, "device_ms": device_ms,
+    return trainer, batch, z, {"k1": k1, "k1b": k1b, "ms": loop_ms,
+                               "device_ms": device_ms,
                                "peak_gb": peak_gb}
 
 
@@ -2213,7 +2387,7 @@ def phase_damsm_inception():
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(_counts() == (0, 0, 0), f"launches {_counts()}: Inception has no "
+    check(_counts() == (0, 0, 0, 0), f"launches {_counts()}: Inception has no "
           "GroupNorm")
     seen = _metric_lines(out.getvalue())
     check(len(seen) == steps and all(math.isfinite(v) for m in seen
@@ -2406,10 +2580,11 @@ def _put_ms(batch, n=5):
     return statistics.median(times)
 
 
-def _hold_against_twins(phase, gn, fwd, bwd):
-    """Every recorded K1, K2 and K3 call against its twin, with the
-    tolerances of phases ``kernels`` and ``roi`` (K3's cotangent scaled to
-    unit RMS as there). Returns the max error per kernel."""
+def _hold_against_twins(phase, gn, fwd, bwd, gn_bwd):
+    """Every recorded K1, K2, K3 and K1 backward call against its twin,
+    with the tolerances of phases ``kernels`` and ``roi`` (K3's cotangent
+    scaled to unit RMS as there) and ``_check_k1_bwd``'s. Returns the max
+    error per kernel (K1 backward's: dx's)."""
     import torch
 
     from objgan_tpu_torch.ops import roi_align as ra
@@ -2448,6 +2623,7 @@ def _hold_against_twins(phase, gn, fwd, bwd):
         hold("K3", ra.roi_align_backward_cuda(boxes, g, f_shape, r, q),
              ra.roi_align_backward_reference(boxes, g, f_shape, g.dtype, r,
                                              q), g.dtype)
+    errs["K1 backward"] = _check_k1_bwd(phase, gn_bwd, "train step")[0]
     return errs
 
 
@@ -2674,38 +2850,42 @@ def phase_feed(k1_per_step):
         trainer = cli.train_gan(cfg, feed, max_steps=2, device="cuda",
                                 log_every=1, ixtoword=vocab.ixtoword)
     torch.cuda.synchronize()
-    k1, k2, k3 = _counts()
+    k1, k2, k3, k1b = _counts()
     wall_s = time.monotonic() - t0
     seen = _metric_lines(out.getvalue())
     check(len(seen) == 2 and all(math.isfinite(v) for m in seen
                                  for v in m.values()),
           "Stage C --wire --grain: metrics missing or non-finite")
-    check(k1 == 2 * k1_per_step, f"Stage C --wire --grain: K1 launched {k1} "
-          f"times in 2 steps; phase train {k1_per_step} per step")
+    check(k1 == k1b == 2 * k1_per_step, f"Stage C --wire --grain: K1 "
+          f"launched {k1}, K1 backward {k1b} times in 2 steps; phase train "
+          f"{k1_per_step} per step")
     check(k2 == 6 and k3 == 6, f"Stage C --wire --grain: K2 {k2}, K3 {k3} "
           f"launches in 2 steps")
     batch = next(feed)
     check(WIRE_IMAGE in batch and "shapes_u8" in batch,
           "the --wire --grain feed gave no wire batch")
-    gn, fwd, bwd, _ = _record_train_step(cfg, trainer,
-                                         cli.to_device(batch, "cuda"))
+    gn, fwd, bwd, _, gn_bwd = _record_train_step(
+        cfg, trainer, cli.to_device(batch, "cuda"))
     feed.close()
-    check(len(gn) == k1_per_step and len(fwd) == 3 and len(bwd) == 3,
-          f"one wire step made {len(gn)} K1, {len(fwd)} K2, {len(bwd)} K3 "
-          f"calls")
-    errs = _hold_against_twins("feed", gn, fwd, bwd)
+    check(len(gn) == len(gn_bwd) == k1_per_step and len(fwd) == 3
+          and len(bwd) == 3, f"one wire step made {len(gn)} K1, {len(fwd)} "
+          f"K2, {len(bwd)} K3, {len(gn_bwd)} K1 backward calls")
+    errs = _hold_against_twins("feed", gn, fwd, bwd, gn_bwd)
     loop = [1000.0 / m["steps_per_sec"] for m in seen]
     log("feed", f"Stage C --wire --grain (cfg/coco_objgan.yml, batch "
         f"{cfg.TRAIN.BATCH_SIZE}, {cfg.WORKERS} worker processes): "
         f"cli.train_gan took 2 steps in {wall_s:.1f} s (set-up and the "
         f"workers' start included), finite metrics; launches K1 {k1} "
-        f"({k1_per_step} per step, as phase train), K2 {k2}, K3 {k3}; loop "
+        f"({k1_per_step} per step, as phase train), K2 {k2}, K3 {k3}, K1 "
+        f"backward {k1b}; loop "
         f"ms per step " + ", ".join(f"{t:.1f}" for t in loop))
     log("feed", f"one more step on a wire batch from the workers: its "
-        f"{len(gn)} K1, {len(fwd)} K2 and {len(bwd)} K3 calls agree with "
-        f"the twins: max err K1 {errs['K1']:.3g}, K2 {errs['K2']:.3g}, K3 "
-        f"{errs['K3']:.3g} (tolerances of phases kernels and roi)")
-    del trainer, gn, fwd, bwd, batch
+        f"{len(gn)} K1, {len(fwd)} K2, {len(bwd)} K3 and {len(gn_bwd)} K1 "
+        f"backward calls agree with the twins: max err K1 {errs['K1']:.3g}, "
+        f"K2 {errs['K2']:.3g}, K3 {errs['K3']:.3g}, K1 backward dx "
+        f"{errs['K1 backward']:.3g} (tolerances of phases kernels, roi and "
+        f"train_k1b)")
+    del trainer, gn, fwd, bwd, gn_bwd, batch
     torch.cuda.empty_cache()
 
     # -- the worker feed at DAMSM's batch ---------------------------------
@@ -2749,7 +2929,8 @@ def phase_feed(k1_per_step):
         f"R-precision {metrics['r_precision']:.3f}, every metric finite; "
         f"K1 launches {eval_k1}")
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"launches": {"K1": k1, "K2": k2, "K3": k3}, "errs": errs}
+    return {"launches": {"K1": k1, "K2": k2, "K3": k3, "K1 backward": k1b},
+            "errs": errs}
 
 
 def _ddp_entry(argv):
@@ -2763,9 +2944,8 @@ def _ddp_entry(argv):
     sys.path.insert(0, ROOT)
     sys.argv = [module, *args]
     runpy.run_module(module, run_name="__main__", alter_sys=True)
-    k1, k2, k3 = _counts()
     with open(f"{counts}.{os.environ['RANK']}", "w") as f:
-        json.dump({"K1": k1, "K2": k2, "K3": k3}, f)
+        json.dump(dict(zip(COUNTED, _counts())), f)
     return 0
 
 
@@ -2780,8 +2960,7 @@ def phase_ddp(train):
 
     from objgan_tpu_torch.parallel import dryrun
 
-    per_step = {k: train[k.lower()] // TRAIN_STEPS for k in ("K1", "K2",
-                                                             "K3")}
+    per_step = {k: train[k.lower()] // TRAIN_STEPS for k in COUNTED}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
     with open(os.path.join(ROOT, "cfg", "coco_objgan.yml")) as f:
         raw = yaml.safe_load(f)
@@ -2841,10 +3020,10 @@ def phase_ddp(train):
     wall_b = time.monotonic() - t0
     log("ddp", f"(b, c) parallel.dryrun.run(2, cuda, gloo) in {wall_b:.1f} "
         f"s: " + dryrun.summary(2, res))
-    errs = {"K1": a_err, "K2": a_err, "K3": a_err}
+    errs = dict.fromkeys(COUNTED, a_err)
     launches = {k: v for k, v in a_launch.items()}
     for name, r in res["stages"].items():
-        ran = [k for k in ("K1", "K2", "K3") if r["launches_1"][k]]
+        ran = [k for k in COUNTED if r["launches_1"][k]]
         for rank, got in enumerate(r["launches"]):
             check(got == r["launches_1"], f"{name}: rank {rank} launched "
                   f"{got}, world size 1 {r['launches_1']}")
@@ -2888,8 +3067,8 @@ def phase_ddp(train):
 MULTI_K = 4  # TRAIN.STEPS_PER_EXECUTION in phase multi_step
 MULTI_STAGES = (("gan", "coco_objgan.yml"), ("damsm", "damsm_coco.yml"),
                 ("box", None), ("shape", "shape_coco.yml"))
-KERNEL_NAMES = {"K1": "gn_fused_kernel", "K2": "roi_fwd_kernel",
-                "K3": "roi_bwd_kernel"}
+KERNEL_NAMES = {"K1": "gn_fused_kernel", "K1 backward": "gn_bwd_kernel",
+                "K2": "roi_fwd_kernel", "K3": "roi_bwd_kernel"}
 
 
 def _sync_ms(fn, reps):
@@ -2942,12 +3121,11 @@ def _graph_against_eager(stage, cfg):
 
     _reset_counts()
     eager_ms = _sync_ms(eager_steps, 1) / MULTI_K
-    per_step = {k: v // MULTI_K for k, v in zip(("K1", "K2", "K3"),
-                                                _counts())}
+    per_step = {k: v // MULTI_K for k, v in zip(COUNTED, _counts())}
     eager_ms = min(eager_ms, _sync_ms(eager_steps, 2) / MULTI_K)
     _reset_counts()
     graph_ms = _sync_ms(replay, 3) / MULTI_K
-    check(_counts() == (0, 0, 0), f"{stage}: a replay counted launches")
+    check(_counts() == (0, 0, 0, 0), f"{stage}: a replay counted launches")
     g_wall, g_busy, _ = device_profile(replay)
     e_wall, e_busy, _ = device_profile(eager_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2974,7 +3152,8 @@ def _graph_against_eager(stage, cfg):
         f"{MULTI_K} steps), replay {g_busy / g_wall:.3f} ({g_busy:.1f} of "
         f"{g_wall:.1f} ms); peak memory allocated {peak_gb:.2f} GiB; graph "
         f"{nodes} nodes, {kernels} kernels, of them K1 {in_graph['K1']}, "
-        f"K2 {in_graph['K2']}, K3 {in_graph['K3']}")
+        f"K2 {in_graph['K2']}, K3 {in_graph['K3']}, K1 backward "
+        f"{in_graph['K1 backward']}")
     return {"eager_ms": eager_ms, "graph_ms": graph_ms,
             "busy": (e_busy / e_wall, g_busy / g_wall), "peak_gb": peak_gb,
             "nodes": in_graph, "kernels": kernels, "all_nodes": nodes,
@@ -3085,7 +3264,7 @@ def _gan_main_k(yml, max_steps):
                        os.path.join(ROOT, MANIFEST), "--data_dir",
                        os.path.join(ROOT, DATA_DIR), "--max_steps",
                        str(max_steps), "--log_every", "1"])
-    return out.getvalue(), dict(zip(("K1", "K2", "K3"), _counts()))
+    return out.getvalue(), dict(zip(COUNTED, _counts()))
 
 
 def phase_multi_step(per_step):
@@ -3147,7 +3326,8 @@ def phase_multi_step(per_step):
     # once, replayed), the tail's two steps; K2 and K3 only in the steps
     counted = 2 * MULTI_K + 2
     check(launched["K2"] == 3 * counted and launched["K3"] == 3 * counted
-          and launched["K1"] >= per_step["K1"] * counted,
+          and launched["K1"] >= per_step["K1"] * counted
+          and launched["K1 backward"] == per_step["K1 backward"] * counted,
           f"gan_main K={MULTI_K}: launches {launched}")
     t0 = time.monotonic()
     text2, _ = _gan_main_k(yml, 14)
@@ -3394,7 +3574,7 @@ def phase_lineage():
             gan = cli.train_gan(gan_cfg, max_steps=steps, device="cuda",
                                 log_every=1)
         torch.cuda.synchronize()
-        k1, k2, k3 = _counts()
+        k1, k2, k3, k1b = _counts()
         train_s = time.monotonic() - t0
     finally:
         hook.remove()
@@ -3414,9 +3594,10 @@ def phase_lineage():
                       text_sd["encoder.weight"]),
           "the text encoder's embedding is not the lineage's")
     gn_calls = calls[FusedGroupNorm]
-    check(k1 > 0 and k1 == gn_calls and k2 == 3 * steps and k3 == 3 * steps,
-          f"lineage Stage C launched K1 {k1} ({gn_calls} GroupNorm calls), "
-          f"K2 {k2}, K3 {k3} in {steps} steps")
+    check(k1 > 0 and k1 == gn_calls == k1b and k2 == 3 * steps
+          and k3 == 3 * steps, f"lineage Stage C launched K1 {k1} "
+          f"({gn_calls} GroupNorm calls), K2 {k2}, K3 {k3}, K1 backward "
+          f"{k1b} in {steps} steps")
     log("lineage", f"convert_damsm: random lineage text_encoder.pth (vocab "
         f"{t.VOCAB_SIZE}, GloVe {t.GLOVE_DIM}, hidden {t.HIDDEN_DIM}) and "
         f"inception image_encoder.pth ({len(img_sd)} tensors) -> NET_E in "
@@ -3424,9 +3605,10 @@ def phase_lineage():
         f"image encoder, {steps} steps in {train_s:.1f} s: finite metrics, "
         f"its {len(enc_keys)} encoder tensors equal the converted ones; "
         f"launches per step K1 {k1 // steps}, K2 {k2 // steps}, K3 "
-        f"{k3 // steps}; ms per step " + ", ".join(
+        f"{k3 // steps}, K1 backward {k1b // steps}; ms per step "
+        + ", ".join(
             f"{1000.0 / m['steps_per_sec']:.1f}" for m in seen))
-    launches = {"K1": k1, "K2": k2, "K3": k3}
+    launches = {"K1": k1, "K2": k2, "K3": k3, "K1 backward": k1b}
     del gan, gan_sd
 
     # netG_epoch_N.pth + a netD per scale, at coco_objgan width
@@ -3544,7 +3726,7 @@ def phase_breakdown():
     from objgan_tpu_torch.train.gan import train_noise
     from objgan_tpu_torch.utils import breakdown
 
-    results, launches = {}, {"K1": 0, "K2": 0, "K3": 0}
+    results, launches = {}, dict.fromkeys(COUNTED, 0)
     eval_cfg = _eval_cfg(tempfile.gettempdir()).merged(
         {"TRAIN": {"FLAG": False}})
     train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
@@ -3568,7 +3750,7 @@ def phase_breakdown():
                 _reset_counts()
                 res = fn()
                 torch.cuda.synchronize()
-                counts = dict(zip(("K1", "K2", "K3"), _counts()))
+                counts = dict(zip(COUNTED, _counts()))
             finally:
                 hook.remove()
             check(_finite(res), f"breakdown {what}: {name} is not finite")
@@ -3592,7 +3774,8 @@ def phase_breakdown():
               f"expected in {want}")
         log("breakdown", f"{what}: each stage once, finite, launches "
             + "; ".join(f"{n} " + "/".join(str(c[k]) for k in c)
-                        for n, c in per_stage.items()) + " (K1/K2/K3)")
+                        for n, c in per_stage.items())
+            + " (K1/K2/K3/K1 backward)")
         t0 = time.monotonic()
         if what == "sampling":
             out = breakdown.sampling_breakdown(cfg, *args, n_loop=8,
@@ -3652,7 +3835,7 @@ def _orbax_tiny(tiny_root, device):
     from objgan_tpu_torch.train import card_check
 
     goldens = dict(np.load(os.path.join(ROOT, ORBAX_GOLDENS)))
-    launches = {"K1": 0, "K2": 0, "K3": 0}
+    launches = dict.fromkeys(COUNTED, 0)
     for stage in ("gan", "damsm", "box", "shape"):
         before = _counts()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3677,12 +3860,13 @@ def _orbax_tiny(tiny_root, device):
             check(e["step_ok"] and e["metric_err"] <= rtol
                   and e["state_score"] <= 1.0,
                   f"tiny {stage} on the {where} against JAX's step: {e}")
-        need = {"gan": (1, 1, 1), "damsm": (1, 0, 0), "shape": (1, 0, 0),
-                "box": (0, 0, 0)}[stage]
+        need = {"gan": (1, 1, 1, 1), "damsm": (1, 0, 0, 1),
+                "shape": (1, 0, 0, 1), "box": (0, 0, 0, 0)}[stage]
         check(device != "cuda" or all((n > 0) == bool(k)
                                       for n, k in zip(rose, need)),
-              f"tiny {stage} on the card launched K1/K2/K3 {rose}")
-        for k, n in zip(("K1", "K2", "K3"), rose):
+              f"tiny {stage} on the card launched K1/K2/K3/K1 backward "
+              f"{rose}")
+        for k, n in zip(COUNTED, rose):
             launches[k] += n
         log("orbax", f"tiny {stage} (JAX step {step}, fp32) restored on the "
             f"card and on the CPU: grads, {r['metrics']} metrics within "
@@ -3690,7 +3874,8 @@ def _orbax_tiny(tiny_root, device):
             f"{card_check.METRIC_RTOL}), {r['grads']} gradients within "
             f"{r['grad_err']:.3g} relative norm (worst {r['worst']}; limit "
             f"{card_check.GRAD_RTOL}); one train step on each (card "
-            f"launches K1/K2/K3 {rose} for both calls) against JAX's: "
+            f"launches K1/K2/K3/K1 backward {rose} for both calls) against "
+            f"JAX's: "
             f"metrics {jax_errs[0]['metric_err']:.3g} (card), "
             f"{jax_errs[1]['metric_err']:.3g} (CPU) relative (limit {rtol}), "
             f"state scores {jax_errs[0]['state_score']:.3g}, "
@@ -3832,7 +4017,7 @@ def phase_orbax(vocab):
             trainer = cli.train_gan(train_cfg, max_steps=step + ORBAX_STEPS,
                                     device="cuda", log_every=1)
         torch.cuda.synchronize()
-        k1, k2, k3 = _counts()
+        k1, k2, k3, k1b = _counts()
     finally:
         hook.remove()
     text = out.getvalue()
@@ -3846,10 +4031,10 @@ def phase_orbax(vocab):
     check(kinds == {step: ckpt.ORBAX, step + ORBAX_STEPS: ckpt.PORT},
           f"steps after the resumed run: {kinds}")
     gn_calls = calls[FusedGroupNorm]
-    check(k1 > 0 and k1 == gn_calls and k2 == 3 * ORBAX_STEPS
+    check(k1 > 0 and k1 == gn_calls == k1b and k2 == 3 * ORBAX_STEPS
           and k3 == 3 * ORBAX_STEPS,
           f"resumed run launched K1 {k1} ({gn_calls} GroupNorm calls), K2 "
-          f"{k2}, K3 {k3} in {ORBAX_STEPS} steps")
+          f"{k2}, K3 {k3}, K1 backward {k1b} in {ORBAX_STEPS} steps")
     log("orbax", f"cli.train_gan with OUTPUT_DIR on a copy of the JAX run: "
         f"\"resumed from step {step}\", {ORBAX_STEPS} steps, finite metrics "
         f"(g_loss " + ", ".join(f"{m['g_loss']:.4g}" for m in seen)
@@ -3858,15 +4043,17 @@ def phase_orbax(vocab):
             f"{1000.0 / m['steps_per_sec']:.1f}" for m in seen)
         + f"; step {step + ORBAX_STEPS} written as state.pt beside the Orbax "
         f"step {step}, which keep-N left alone; launches per step K1 "
-        f"{k1 // ORBAX_STEPS}, K2 {k2 // ORBAX_STEPS}, K3 {k3 // ORBAX_STEPS}")
-    gn, fwd, bwd, _ = _record_train_step(train_cfg, trainer)
-    errs = _hold_against_twins("orbax", gn, fwd, bwd)
+        f"{k1 // ORBAX_STEPS}, K2 {k2 // ORBAX_STEPS}, K3 {k3 // ORBAX_STEPS}"
+        f", K1 backward {k1b // ORBAX_STEPS}")
+    gn, fwd, bwd, _, gn_bwd = _record_train_step(train_cfg, trainer)
+    errs = _hold_against_twins("orbax", gn, fwd, bwd, gn_bwd)
     log("orbax", f"one more step of the resumed trainer: its {len(gn)} K1, "
-        f"{len(fwd)} K2 and {len(bwd)} K3 calls against their twins, max "
-        f"err " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-    del trainer, gn, fwd, bwd
+        f"{len(fwd)} K2, {len(bwd)} K3 and {len(gn_bwd)} K1 backward calls "
+        f"against their twins, max err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+    del trainer, gn, fwd, bwd, gn_bwd
     torch.cuda.empty_cache()
-    launches = {"K1": k1, "K2": k2, "K3": k3}
+    launches = {"K1": k1, "K2": k2, "K3": k3, "K1 backward": k1b}
 
     # sample from the JAX step through TRAIN.NET_G
     sample_cfg = cfg.merged({"OUTPUT_DIR": os.path.join(tmp, "sample"),
@@ -3918,9 +4105,10 @@ def phase_guard_pages():
     regimes = {ln.split(": ", 1)[1].split(" cluster")[0] for ln in checks
                if ln.startswith("PASS K1")}
     check(regimes == {"resident", "streaming"}, f"K1 plans run: {regimes}")
-    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+)", proc.stdout)
+    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+), K1 backward "
+                      r"(\d+)", proc.stdout)
     check(found is not None, "guard_pages printed no launch counts")
-    launches = dict(zip(("K1", "K2", "K3"), map(int, found.groups())))
+    launches = dict(zip(COUNTED, map(int, found.groups())))
     t0 = time.monotonic()
     control = subprocess.run(
         [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages",
@@ -4067,19 +4255,23 @@ def main():
                               ).merged({"OUTPUT_DIR": out_dir})
     trainer, train = phase_train(train_cfg)
     phase_train_profile(train_cfg, trainer)
-    gn_calls, fwd, bwd, pad = _record_train_step(train_cfg, trainer)
+    gn_calls, fwd, bwd, pad, gn_bwd = _record_train_step(train_cfg, trainer)
     del trainer
-    check(len(gn_calls) == train["k1_per_step"],
-          f"one step made {len(gn_calls)} K1 calls, train_gan "
-          f"{train['k1_per_step']} per step")
+    check(len(gn_calls) == len(gn_bwd) == train["k1_per_step"],
+          f"one step made {len(gn_calls)} K1 and {len(gn_bwd)} K1 backward "
+          f"calls, train_gan {train['k1_per_step']} per step")
     with torch.no_grad():
         k1_train_err, k1_train = _check_k1("train_k1", gn_calls, "train step")
     del gn_calls
+    k1b_err, k1b_param_err, k1b = _check_k1_bwd("train_k1b", gn_bwd,
+                                                 "train step", timed=True)
+    del gn_bwd
     roi = phase_roi(fwd, bwd, pad)
     del fwd, bwd
     torch.cuda.empty_cache()
     phase_small_train()
-    damsm_trainer, batch, keep, damsm_k1_launches = phase_damsm()
+    damsm_trainer, batch, keep, (damsm_k1_launches,
+                                 damsm_k1b_launches) = phase_damsm()
     k1_damsm_err, k1_damsm = phase_damsm_k1(damsm_trainer, batch, keep)
     del damsm_trainer, batch, keep
     torch.cuda.empty_cache()
@@ -4103,7 +4295,7 @@ def main():
     feed = phase_feed(train["k1_per_step"])
     ddp = phase_ddp(train)
     multi = phase_multi_step({k: train[k.lower()] // TRAIN_STEPS
-                              for k in ("K1", "K2", "K3")})
+                              for k in COUNTED})
     phase_native()
     lineage = phase_lineage()
     torch.cuda.empty_cache()
@@ -4157,6 +4349,37 @@ def main():
                ("shape", shape["k1"], k1_shape_err, k1_shape),
                ("eval", eval_launches, k1_eval_err, k1_eval))},
     }]
+    kernels.append({
+        "name": "groupnorm_bwd", "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1B_REPLACES,
+        # per Stage-C train step (the 90 calls of one step replayed): dx's
+        # largest error, dscale's and dbias's over their magnitude; ms one
+        # call per graph; plain_ms the twin's VJP (fp32); library_ms aten's
+        # native_group_norm_backward on the library_calls calls without
+        # GLU (GLU has no library backward)
+        "launches": train["k1 backward"], "max_abs_err": max(
+            k1b_err, feed["errs"]["K1 backward"],
+            orbax["errs"]["K1 backward"]),
+        "param_err": k1b_param_err, "dx_ulps": k1b["dx_ulps"],
+        "ms": k1b["ms"],
+        "plain_ms": k1b["plain_ms"], "bound_ms": k1b["bound_ms"],
+        "bound_by": "bytes", "library_ms": k1b["library_ms"],
+        "library_calls": k1b["library_calls"], "kernels": k1b["kernels"],
+        "regimes": k1b["regimes"], "ms_10_per_graph": k1b["ms_10_per_graph"],
+        "all_in_one_graph_ms": k1b["all_in_one_graph_ms"],
+        "damsm": {"launches": damsm_k1b_launches},
+        "shape": {"launches": shape["k1b"]},
+        "feed": {"launches": feed["launches"]["K1 backward"],
+                 "max_abs_err": feed["errs"]["K1 backward"]},
+        "ddp": {"launches": ddp["launches"]["K1 backward"]},
+        "orbax": {"launches": orbax["launches"]["K1 backward"],
+                  "max_abs_err": orbax["errs"]["K1 backward"]},
+        "multi_step": {"launches": multi["launches"]["K1 backward"],
+                       "graph_nodes": {s: r["nodes"]["K1 backward"] for s, r
+                                       in multi["stages"].items()}},
+        **{path: {"launches": r["launches"].get("K1 backward", 0)}
+           for path, r in new_paths.items()},
+    })
     for name, replaces, key in (("roi_align_fwd", K2_REPLACES, "K2"),
                                 ("roi_align_bwd", K3_REPLACES, "K3")):
         r = roi[key]

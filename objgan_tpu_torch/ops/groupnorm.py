@@ -12,9 +12,16 @@ rows of x in shared memory where they fit (read once from device memory),
 or stream the rest and read it a second time (see csrc/groupnorm.cu).
 
 On the card the kernel runs inside ``GroupNormFunction``, a
-``torch.autograd.Function`` whose backward is the VJP of the twin with the
+``torch.autograd.Function`` whose backward is "K1 backward", a second
+hand-written kernel in the same source: the VJP of the twin with the
 statistics recomputed from the saved ``x, scale, bias``, as the JAX
-package's ``custom_vjp`` does (``_gn_bwd``). There is no backward kernel.
+package's ``custom_vjp`` does (``_gn_bwd``, autodiff of its reference; no
+TPU kernel). One launch per call, and a second, small one that sums the
+batch elements' dscale and dbias where they are wanted; ``_bwd_plan``
+(pure Python, tested on the CPU) picks cluster and kept rows as ``_plan``
+does. On a CPU tensor autograd runs through the twin, and
+``group_norm_backward_reference`` (that VJP) is the oracle the kernel is
+held to.
 
 Semantics are the JAX package's ``group_norm_reference``: Linen GroupNorm
 statistics in fp32 (E[x^2] - E[x]^2 clamped at 0), the per-channel affine,
@@ -27,6 +34,7 @@ E[x^2] - E[x]^2 in exact arithmetic and keeps fp32 from cancelling where
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -35,6 +43,9 @@ from objgan_tpu_torch.ops import _build
 
 # Launches of the CUDA kernel since the last reset (the CPU twin never counts).
 launches = 0
+# Calls of K1 backward since the last reset, one per call (a call launches
+# one or two kernels); the CPU twin never counts.
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The same numbers as csrc/groupnorm.cu's kThreads, kChunks, kStages and
@@ -131,26 +142,16 @@ def _slots(sms: int) -> int:
     return 2 * sms * 7 // 8
 
 
-def _plan(b: int, n: int, c: int, itemsize: int, use_glu: bool, sms: int,
-          aligned: bool = True) -> Plan:
-    """The launch plan of K1 for x (b, n, c) of ``itemsize`` bytes on a card
-    with ``sms`` SMs; ``aligned`` says x starts on a 16-byte boundary. A CTA
-    takes at most _HALF_SMEM bytes of shared memory, so that two share an
-    SM.
-
-    The clusters of one wave (_WAVE_SIZES with b * size <= _slots(sms)) run
-    every batch element at once. The plan is resident at the smallest such
-    cluster that holds the slice x[b] (spread up to _SPREAD CTAs while each
-    keeps _MIN_CTA_BYTES). If none holds it, it streams at the largest such
-    cluster while a CTA's share is at most _MAX_STREAM_BYTES; else it takes
-    more waves: resident at the smallest power of two that holds the slice,
-    or streaming at 16."""
-    vec = _vec_width(c, itemsize, use_glu) if aligned else 1
-    row = c * itemsize
-    fixed = _fixed_smem(c, vec)
-    if fixed + row > _HALF_SMEM:
-        raise ValueError(f"C={c} is too wide for K1's shared memory")
-    cap = (_HALF_SMEM - fixed) // row  # rows one CTA can hold
+def _cluster_for(b: int, n: int, cap: int, row_bytes: int, sms: int,
+                 max_stream: float = math.inf) -> int:
+    """The cluster size of a plan over b batch elements of n rows, a CTA
+    keeping at most ``cap`` rows of ``row_bytes`` bytes read each. The
+    clusters of one wave (_WAVE_SIZES with b * size <= _slots(sms)) run
+    every batch element at once: the smallest that keeps every row (spread
+    up to _SPREAD CTAs while each reads _MIN_CTA_BYTES), else the largest
+    while a CTA's share is at most ``max_stream`` bytes; beyond that more
+    waves, at the smallest power of two that keeps every row, or 16. No CTA
+    is left without rows."""
 
     def rows_at(cs):
         return -(-n // cs)
@@ -159,16 +160,37 @@ def _plan(b: int, n: int, c: int, itemsize: int, use_glu: bool, sms: int,
     fit = [cs for cs in wave if rows_at(cs) <= cap]
     if fit:
         cluster = max(cs for cs in wave if cs == fit[0] or (
-            fit[0] < cs <= _SPREAD and rows_at(cs) * row >= _MIN_CTA_BYTES))
-    elif rows_at(wave[-1]) * row <= _MAX_STREAM_BYTES:
+            fit[0] < cs <= _SPREAD and rows_at(cs) * row_bytes
+            >= _MIN_CTA_BYTES))
+    elif rows_at(wave[-1]) * row_bytes <= max_stream:
         cluster = wave[-1]
     else:
         cluster = next((cs for cs in _SIZES if rows_at(cs) <= cap),
                        _MAX_CLUSTER)
-    # no CTA without rows
     while cluster > 1 and (cluster - 1) * rows_at(cluster) >= n:
         cluster = max(cs for cs in _WAVE_SIZES if cs < cluster)
-    rows = rows_at(cluster)
+    return cluster
+
+
+def _plan(b: int, n: int, c: int, itemsize: int, use_glu: bool, sms: int,
+          aligned: bool = True) -> Plan:
+    """The launch plan of K1 for x (b, n, c) of ``itemsize`` bytes on a card
+    with ``sms`` SMs; ``aligned`` says x starts on a 16-byte boundary. A CTA
+    takes at most _HALF_SMEM bytes of shared memory, so that two share an
+    SM.
+
+    The cluster is ``_cluster_for``'s: resident in one wave where a
+    cluster holds the slice x[b], else streaming in one wave while a CTA's
+    share is at most _MAX_STREAM_BYTES, else more waves (resident at the
+    smallest power of two that holds the slice, or streaming at 16)."""
+    vec = _vec_width(c, itemsize, use_glu) if aligned else 1
+    row = c * itemsize
+    fixed = _fixed_smem(c, vec)
+    if fixed + row > _HALF_SMEM:
+        raise ValueError(f"C={c} is too wide for K1's shared memory")
+    cap = (_HALF_SMEM - fixed) // row  # rows one CTA can hold
+    cluster = _cluster_for(b, n, cap, row, sms, _MAX_STREAM_BYTES)
+    rows = -(-n // cluster)
     ring_rows = 0
     if ((rows - cap) * row > _RING_MIN_BYTES and vec > 1
             and c // vec <= _THREADS):
@@ -191,11 +213,101 @@ def plan_for(x3: torch.Tensor, use_glu: bool) -> Plan:
                  x3.data_ptr() % 16 == 0)
 
 
+class BwdPlan(NamedTuple):
+    """How one K1 backward call is launched: grid (cluster, B) in clusters
+    of ``cluster`` CTAs; CTA r owns rows [r * rows, (r + 1) * rows) of its
+    batch element and keeps the first ``res_rows`` of x (and of the
+    cotangent where dx is wanted) in shared memory; the rest are read again
+    in each later pass; ``smem`` bytes of dynamic shared memory; ``vec``
+    elements per vector; ``params``: dscale and dbias are wanted, and a
+    second kernel sums the batch elements' partials."""
+    regime: str   # "resident": every byte of x and dy read once
+    cluster: int
+    rows: int
+    res_rows: int
+    smem: int
+    vec: int
+    params: bool
+
+
+def _bwd_fixed_smem(c: int, vec: int) -> int:
+    """Shared memory before the kept rows: a scratch of _THREADS * vec
+    floats, 4C floats of partials, 4C of the cluster's sums and eight C
+    float arrays (csrc/groupnorm.cu's bwd_tile_offset)."""
+    raw = 4 * (_THREADS * vec + 16 * c)
+    return -(-raw // 128) * 128
+
+
+def _bwd_vec_width(c: int, itemsize: int, use_glu: bool) -> int:
+    """16-byte vectors (8-byte for bf16 with GLU, where a thread holds both
+    halves' coefficients) when every row and the GLU's halves start on
+    such a boundary, else 1."""
+    v = 16 // itemsize
+    if use_glu:
+        v = min(v, 4)
+    return v if c % v == 0 and (not use_glu or (c // 2) % v == 0) else 1
+
+
+def _bwd_plan(b: int, n: int, c: int, itemsize: int, use_glu: bool,
+              needs: Tuple[bool, bool, bool], sms: int,
+              aligned: bool = True) -> BwdPlan:
+    """The launch plan of K1 backward for x (b, n, c) of ``itemsize`` bytes
+    and the gradients ``needs`` flags (dx, dscale, dbias) on a card with
+    ``sms`` SMs; ``aligned`` says x and the cotangent start on a 16-byte
+    boundary. A CTA takes at most _HALF_SMEM bytes of shared memory.
+
+    The passes after the first (with GLU, or for dx) read x and the
+    cotangent again; a kept row spares that, so a row keeps x, and the
+    cotangent where dx is wanted. The cluster is ``_cluster_for``'s, always
+    in one wave: resident where a cluster keeps every row, else streaming
+    at the largest, keeping as many rows as fit. A call of one pass (no
+    GLU, no dx) keeps nothing and reads everything once."""
+    want_dx, params = needs[0], bool(needs[1] or needs[2])
+    if not (want_dx or params):
+        raise ValueError("K1 backward with no gradient wanted")
+    vec = _bwd_vec_width(c, itemsize, use_glu) if aligned else 1
+    cd = c // 2 if use_glu else c
+    read = (c + cd) * itemsize  # bytes of x and the cotangent in a row
+    keep = (c + cd * want_dx) * itemsize if use_glu or want_dx else 0
+    fixed = _bwd_fixed_smem(c, vec)
+    if fixed + keep > _HALF_SMEM:
+        raise ValueError(f"C={c} is too wide for K1 backward's shared memory")
+    cap = (_HALF_SMEM - fixed) // keep if keep else n  # rows a CTA keeps
+    cluster = _cluster_for(b, n, cap, read, sms)
+    rows = -(-n // cluster)
+    res_rows = min(rows, cap) if keep else 0
+    return BwdPlan("resident" if res_rows == rows or not keep else
+                   "streaming", cluster, rows, res_rows,
+                   fixed + res_rows * keep, vec, params)
+
+
+def bwd_plan_for(x3: torch.Tensor, grad_y: torch.Tensor, use_glu: bool,
+                 needs) -> BwdPlan:
+    """The plan ``group_norm_backward_cuda`` launches for x3 (B, N, C) and
+    its cotangent on their card."""
+    b, n, c = x3.shape
+    aligned = x3.data_ptr() % 16 == 0 and grad_y.data_ptr() % 16 == 0
+    return _bwd_plan(b, n, c, x3.element_size(), use_glu, tuple(needs),
+                     _sm_count(x3.device), aligned)
+
+
 # ctypes types of csrc/groupnorm.cu's objgan_group_norm: x, y, scale, bias;
 # dtype, vec, B, N, C, G, cluster, rows, res_rows, ring_rows, bulk, smem;
 # eps, use_glu; stream
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 12
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+# ctypes types of csrc/groupnorm.cu's objgan_group_norm_bwd: x, dy, scale,
+# bias, dx, part, dparams; dtype, vec, B, N, C, G, cluster, rows, res_rows,
+# smem; eps, use_glu; stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 10
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+# ctypes types of csrc/groupnorm.cu's objgan_group_norm_max_clusters:
+# backward, dtype, vec, use_glu, cluster, smem; out
+_MAX_CLUSTERS_ARGTYPES = (ctypes.c_int,) * 6 + (ctypes.POINTER(ctypes.c_int),)
 
 
 def _lib():
@@ -206,11 +318,13 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = list(_ARGTYPES)
+        lib.objgan_group_norm_bwd.restype = ctypes.c_int
+        lib.objgan_group_norm_bwd.argtypes = list(_BWD_ARGTYPES)
         lib.objgan_group_norm_setup.restype = ctypes.c_int
         lib.objgan_group_norm_setup.argtypes = []
         mc = lib.objgan_group_norm_max_clusters
         mc.restype = ctypes.c_int
-        mc.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        mc.argtypes = list(_MAX_CLUSTERS_ARGTYPES)
     return lib
 
 
@@ -232,12 +346,15 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[idx]
 
 
-def _check_plan(lib, idx: int, dtype_code: int, plan: Plan,
-                use_glu: bool) -> None:
+def _check_plan(lib, idx: int, dtype_code: int, plan,
+                use_glu: bool, backward: bool = False) -> None:
     """Sets the function attributes on device ``idx`` once, and raises
-    unless the card can hold one cluster of the plan (asked once per plan;
-    both happen at a shape's first call, outside any CUDA-graph capture)."""
+    unless the card can hold one cluster of the plan (a ``Plan``, or with
+    ``backward`` a ``BwdPlan``; asked once per plan; both happen at a
+    shape's first call, outside any CUDA-graph capture)."""
     key = (idx, dtype_code, plan.vec, use_glu, plan.cluster, plan.smem)
+    if backward:
+        key += ("bwd",)
     if key in _schedulable:
         return
     with torch.cuda.device(idx):
@@ -249,20 +366,19 @@ def _check_plan(lib, idx: int, dtype_code: int, plan: Plan,
             _ready_devices.add(idx)
         out = ctypes.c_int(0)
         err = lib.objgan_group_norm_max_clusters(
-            dtype_code, plan.vec, int(use_glu), plan.cluster, plan.smem,
-            ctypes.byref(out))
+            int(backward), dtype_code, plan.vec, int(use_glu), plan.cluster,
+            plan.smem, ctypes.byref(out))
     if err != 0 or out.value < 1:
         raise RuntimeError(f"the card cannot run K1's plan {plan}: cudaError "
                            f"{err}, {out.value} clusters fit")
     _schedulable[key] = out.value
 
 
-def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int, eps: float, use_glu: bool) -> torch.Tensor:
-    """Launch K1 on x3 (B, N, C), contiguous, bf16 or fp32, on a CUDA device:
-    one kernel, launched by ``plan_for(x3, use_glu)``. Returns (B, N, C) or
-    (B, N, C // 2) with GLU, in x3's dtype."""
-    global launches
+def _check_inputs(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  num_groups: int, use_glu: bool) -> None:
+    """Raises unless K1 (forward or backward) takes x3 (B, N, C),
+    contiguous, bf16 or fp32, on a CUDA device, and fp32 (C,) scale and
+    bias on its card."""
     if x3.device.type != "cuda":
         raise ValueError(f"group_norm_cuda needs a CUDA tensor, got "
                          f"{x3.device}")
@@ -285,6 +401,16 @@ def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 or p.shape != (c,) or not p.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous fp32 ({c},) tensor "
                              f"on {x3.device}")
+
+
+def group_norm_cuda(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float, use_glu: bool) -> torch.Tensor:
+    """Launch K1 on x3 (B, N, C), contiguous, bf16 or fp32, on a CUDA device:
+    one kernel, launched by ``plan_for(x3, use_glu)``. Returns (B, N, C) or
+    (B, N, C // 2) with GLU, in x3's dtype."""
+    global launches
+    _check_inputs(x3, scale, bias, num_groups, use_glu)
+    b, n, c = x3.shape
     plan = plan_for(x3, use_glu)
     lib, idx, code = _lib(), _device_index(x3.device), _DTYPE_CODE[x3.dtype]
     _check_plan(lib, idx, code, plan, use_glu)
@@ -322,8 +448,53 @@ def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
     return tuple(next(grads) if want else None for want in needs)
 
 
+def group_norm_backward_cuda(x3: torch.Tensor, scale: torch.Tensor,
+                             bias: torch.Tensor, num_groups: int, eps: float,
+                             use_glu: bool, grad_y: torch.Tensor,
+                             needs=(True, True, True)):
+    """K1 backward: (dx, dscale, dbias) of K1 at x3 (B, N, C) for the
+    output cotangent ``grad_y`` (B, N, C), or (B, N, C // 2) with GLU, in
+    x3's dtype, on x3's card; the arguments are the forward's. One kernel,
+    and a second that sums the batch elements' dscale and dbias where
+    ``needs`` asks for them; entries whose flag is False are None. dx has
+    x3's dtype, dscale and dbias are fp32."""
+    global bwd_launches
+    _check_inputs(x3, scale, bias, num_groups, use_glu)
+    b, n, c = x3.shape
+    cd = c // 2 if use_glu else c
+    grad_y = grad_y.contiguous()
+    if (grad_y.shape != (b, n, cd) or grad_y.dtype != x3.dtype
+            or grad_y.device != x3.device):
+        raise ValueError(f"the cotangent must be {x3.dtype} {(b, n, cd)} on "
+                         f"{x3.device}, got {grad_y.dtype} "
+                         f"{tuple(grad_y.shape)} on {grad_y.device}")
+    plan = bwd_plan_for(x3, grad_y, use_glu, needs)
+    lib, idx, code = _lib(), _device_index(x3.device), _DTYPE_CODE[x3.dtype]
+    _check_plan(lib, idx, code, plan, use_glu, backward=True)
+    dx = torch.empty_like(x3) if needs[0] else None
+    part = dparams = None
+    if plan.params:
+        part = torch.empty((b, 2 * c), dtype=torch.float32, device=x3.device)
+        dparams = torch.empty((2, c), dtype=torch.float32, device=x3.device)
+    with torch.cuda.device(x3.device):
+        err = lib.objgan_group_norm_bwd(
+            x3.data_ptr(), grad_y.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), None if dx is None else dx.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if dparams is None else dparams.data_ptr(), code, plan.vec,
+            b, n, c, num_groups, plan.cluster, plan.rows, plan.res_rows,
+            plan.smem, float(eps), int(use_glu),
+            torch.cuda.current_stream(x3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm backward kernel launch failed: "
+                           f"cudaError {err}")
+    bwd_launches += 1
+    return (dx, dparams[0] if needs[1] else None,
+            dparams[1] if needs[2] else None)
+
+
 class GroupNormFunction(torch.autograd.Function):
-    """K1 forward on (B, N, C), the twin's VJP backward."""
+    """K1 forward and K1 backward on (B, N, C)."""
 
     @staticmethod
     def forward(ctx, x3, scale, bias, num_groups, eps, use_glu):
@@ -334,7 +505,7 @@ class GroupNormFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_y):
         x3, scale, bias = ctx.saved_tensors
-        grads = group_norm_backward_reference(
+        grads = group_norm_backward_cuda(
             x3, scale, bias, *ctx.args, grad_y,
             needs=ctx.needs_input_grad[:3])
         return (*grads, None, None, None)

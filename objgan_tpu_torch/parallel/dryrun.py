@@ -20,8 +20,9 @@ initial weights, on deterministic global batches made with numpy:
 
 It prints one summary line. On the CPU (``--device cpu``, gloo) every
 kernel runs its plain twin; on the card the ranks run kernels K1-K3 and
-each counts its launches. ``--device cuda`` puts rank r on card r modulo
-the card count, so two gloo ranks share one card; NCCL refuses that.
+K1 backward, and each counts its launches. ``--device cuda`` puts rank r
+on card r modulo the card count, so two gloo ranks share one card; NCCL
+refuses that.
 ``run`` returns what the summary reads (``chip_smoke.py`` reads it too).
 """
 
@@ -105,7 +106,8 @@ def _launches() -> Dict[str, int]:
     from objgan_tpu_torch.ops import groupnorm, roi_align
 
     return {"K1": groupnorm.launches, "K2": roi_align.launches["fwd"],
-            "K3": roi_align.launches["bwd"]}
+            "K3": roi_align.launches["bwd"],
+            "K1 backward": groupnorm.bwd_launches}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:

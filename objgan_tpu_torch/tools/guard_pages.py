@@ -22,15 +22,19 @@ Each check runs one wrapper on guarded inputs and holds the result against
 its plain PyTorch twin (fp32 1e-4; bf16 as ``tests/test_torch_cuda.py``):
 K1 (``group_norm_cuda``) at the streaming and resident plans on both sides
 of ``ops/groupnorm.py::_plan``'s threshold, the ring, the cluster sizes
-and the scalar path; K2 and K3 (``roi_align_cuda``,
-``roi_align_backward_cuda``) at the train step's shape, the scalar path
-and other sampling ratios, and on the boxes of the adversarial test. One
-line per check (its name printed before the launch, so a fault names it),
-then the launches and "guard pages: N checks PASS". An illegal address
-poisons the process's CUDA context: run this in a process of its own, as
-``chip_smoke.py`` and the card test do. ``--control`` reads one element
-past the end of a guarded tensor with a plain PyTorch op, which must fault
-(exit code nonzero): the check's own witness that the guard works.
+and the scalar path, and K1 backward (``group_norm_backward_cuda``, its
+cotangent guarded too) at the same shapes against the twin's VJP in fp64
+(dscale and dbias, sums over B * N rows, within 1e-4 of their largest
+magnitude; under GLU in bf16 within the bf16 numbers so scaled); K2 and
+K3 (``roi_align_cuda``, ``roi_align_backward_cuda``) at the train step's
+shape, the scalar path and other sampling ratios, and on the boxes of the
+adversarial test. One line per check (its name printed before the
+launch, so a fault names it), then the launches and "guard pages: N
+checks PASS". An illegal address poisons the process's CUDA context: run
+this in a process of its own, as ``chip_smoke.py`` and the card test do.
+``--control`` reads one element past the end of a guarded tensor with a
+plain PyTorch op, which must fault (exit code nonzero): the check's own
+witness that the guard works.
 """
 
 from __future__ import annotations
@@ -202,6 +206,24 @@ def _close(got, want, dtype, atol_bf16, rtol_bf16):
         (err > atol_bf16 + rtol_bf16 * want.float().abs()).any())
 
 
+def _close_bwd(got, want, dtype, use_glu):
+    """``_close`` for (dx, dscale, dbias) against the twin's VJP in fp64:
+    dx at fp32 atol 1e-4, bf16 atol 3e-2, rtol 2e-2; dscale and dbias
+    within 1e-4 of their largest magnitude (at least 1), or under GLU in
+    bf16 within the bf16 tolerances so scaled (``tests/test_torch_cuda.py
+    ::_bwd_close``)."""
+    bf16 = (3e-2, 2e-2)
+    errs, ok = [], True
+    for i, (g, w) in enumerate(zip(got, want)):
+        span = 1.0 if i == 0 else max(1.0, float(w.abs().max()))
+        atol, rtol = (bf16 if dtype == torch.bfloat16 and (i == 0 or use_glu)
+                      else (1e-4, 0.0))
+        err = (g.double() - w).abs()
+        errs.append(float(err.max()))
+        ok &= not bool((err > atol * span + rtol * w.abs()).any())
+    return max(errs), ok
+
+
 def _roi_inputs(b, h, w, c, o, dtype, gen, dev):
     f = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
     xy = torch.rand(b, o, 2, generator=gen, device=dev) * 0.7
@@ -260,6 +282,19 @@ def run_checks(device="cuda", out=print) -> List[dict]:
                                             glu)
             report(name, f"{plan.regime} cluster {plan.cluster} vec "
                    f"{plan.vec}", _close(got, want, dtype, 3e-2, 2e-2))
+            gy = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
+            ggy = arena.copy(gy)
+            bplan = gnm.bwd_plan_for(gx, ggy, glu, (True, True, True))
+            out(f"run  {name} backward", flush=True)
+            grads = gnm.group_norm_backward_cuda(gx, gs, gb, groups, 1e-6,
+                                                 glu, ggy)
+            torch.cuda.synchronize(dev)
+            wants = gnm.group_norm_backward_reference(
+                x.double(), scale.double(), bias.double(), groups, 1e-6, glu,
+                gy.double())
+            report(f"{name} backward", f"{bplan.regime} cluster "
+                   f"{bplan.cluster} vec {bplan.vec}",
+                   _close_bwd(grads, wants, dtype, glu))
         cases = [(_roi_inputs(b, h, w, c, o, dtype, gen, dev), r, dtype, q)
                  for b, h, w, c, o, r, dtype, q in ROI_SHAPES]
         for c, dtype in ((256, torch.bfloat16), (64, torch.float32),
@@ -322,7 +357,8 @@ def main(argv=None) -> int:
     records = run_checks()
     bad = [r["name"] for r in records if not r["ok"]]
     print(f"launches: K1 {groupnorm.launches}, K2 "
-          f"{roi_align.launches['fwd']}, K3 {roi_align.launches['bwd']}")
+          f"{roi_align.launches['fwd']}, K3 {roi_align.launches['bwd']}, "
+          f"K1 backward {groupnorm.bwd_launches}")
     print(f"guard pages: {len(records)} checks "
           f"{'PASS' if not bad else 'FAIL ' + ', '.join(bad)}", flush=True)
     return 1 if bad else 0

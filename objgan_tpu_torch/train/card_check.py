@@ -347,9 +347,11 @@ def graph_against_eager(stage: str, cfg, k: int = 4, device="cuda"):
     for opt in copies["k1"].optimizers():
         set_capturable(opt, False)
     inputs = stacked_inputs(stage, cfg, graph, graph.step, k, device)
-    before = (groupnorm.launches, dict(roi_align.launches))
+    before = (groupnorm.launches, dict(roi_align.launches),
+              groupnorm.bwd_launches)
     got_m = graph.multi_train_step(*inputs)
     captured = {"K1": groupnorm.launches - before[0],
+                "K1 backward": groupnorm.bwd_launches - before[2],
                 "K2": roi_align.launches["fwd"] - before[1]["fwd"],
                 "K3": roi_align.launches["bwd"] - before[1]["bwd"]}
     rows = {name: [t.train_step(index_stack(inputs[0], i),

@@ -257,6 +257,202 @@ def test_shape_step_on_card_matches_cpu(dev):
     assert r["grad_err"] <= card_check.GRAD_RTOL == 1e-3, r["worst"]
 
 
+# -- K1 backward ---------------------------------------------------------------
+
+# (B, N, C) of the GroupNorm calls of a coco_objgan train step at batch 16
+# (cfg/coco_objgan.yml; B = 160 for the object discriminator's 10 objects
+# per image)
+K1_TRAIN_SHAPES = [
+    (16, 65536, 64), (16, 16384, 192), (16, 16384, 96), (16, 16384, 64),
+    (16, 16384, 32), (16, 4096, 192), (16, 4096, 128), (16, 4096, 96),
+    (16, 4096, 64), (16, 1024, 256), (16, 1024, 128), (16, 256, 512),
+    (16, 256, 256), (16, 256, 128), (16, 64, 512), (16, 64, 256),
+    (16, 16, 512), (16, 16, 256), (160, 16, 512),
+]
+# (dx, dscale, dbias) as autograd asks for them: all (G and the
+# discriminators), dx alone (the frozen image encoder), and the parameters
+# alone (a first layer whose input takes no gradient)
+NEEDS = [(True, True, True), (True, False, False), (False, True, True)]
+
+
+def _cotangent(x, use_glu, seed):
+    b, n, c = x.shape
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.randn(b, n, c // 2 if use_glu else c, generator=g,
+                       device=x.device).to(x.dtype)
+
+
+def _twin_vjp(x, scale, bias, use_glu, gy):
+    """The twin's VJP in fp64 on the CPU: (dx, dscale, dbias), on all of
+    the host's cores."""
+    import os
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or threads)
+    try:
+        return groupnorm.group_norm_backward_reference(
+            x.cpu().double(), scale.cpu().double(), bias.cpu().double(),
+            _groups(x.shape[-1]), 1e-6, use_glu, gy.cpu().double())
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _bwd_close(got, want, dtype, name, use_glu):
+    """dx at K1's tolerances: fp32 atol 1e-4; bf16 atol 3e-2, rtol 2e-2 (dx
+    is rounded to bf16 once, and under GLU a, g and the sigmoid are rounded
+    as the forward rounds them). dscale and dbias are fp32 sums over B * N
+    rows (to magnitudes of ~1e3 here): within 1e-4 of their largest
+    magnitude (at least 1), in both dtypes; a sum that drops or counts
+    twice a share of the rows fails that. Only under GLU in bf16, where the
+    rounded a, g and sigmoid enter every term, within K1's bf16 tolerances
+    so scaled. Largest errors measured on an H100 over these tests'
+    shapes, as a share of that magnitude: 7.9e-7 without GLU (either
+    dtype) and 5.9e-7 in fp32 with it; 3.2e-3 under GLU in bf16 (8.3e-3
+    on the calls of a coco_objgan train step)."""
+    got, want = got.double().cpu(), want.double()
+    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (3e-2, 2e-2)
+    if name != "dx":
+        if not (use_glu and dtype == torch.bfloat16):
+            atol, rtol = 1e-4, 0.0
+        atol *= max(1.0, float(want.abs().max()))
+    bad = (got - want).abs() > atol + rtol * want.abs()
+    assert not bool(bad.any()), (name, float((got - want).abs().max()))
+
+
+def _k1_bwd_matches_twin(x, scale, bias, use_glu, seed=0):
+    gy = _cotangent(x, use_glu, seed + 100)
+    want = _twin_vjp(x, scale, bias, use_glu, gy)
+    for needs in NEEDS:
+        before = groupnorm.bwd_launches
+        got = groupnorm.group_norm_backward_cuda(
+            x, scale, bias, _groups(x.shape[-1]), 1e-6, use_glu, gy, needs)
+        torch.cuda.synchronize()
+        assert groupnorm.bwd_launches == before + 1
+        for name, g, w, want_it in zip(("dx", "dscale", "dbias"), got, want,
+                                       needs):
+            assert (g is None) == (not want_it), (name, needs)
+            if g is not None:
+                assert g.dtype == (x.dtype if name == "dx" else torch.float32)
+                assert g.shape == w.shape and g.device == x.device
+                _bwd_close(g, w, x.dtype, name, use_glu)
+
+
+@pytest.mark.parametrize("use_glu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,c", K1_TRAIN_SHAPES)
+def test_k1_backward_matches_twin(dev, b, n, c, dtype, use_glu):
+    """K1 backward at each train-step shape, in bf16 and fp32, with and
+    without GLU, under each needs pattern, against the twin's VJP in fp64
+    on the CPU."""
+    x, scale, bias = _inputs(b, n, c, dtype, dev, seed=6)
+    _k1_bwd_matches_twin(x, scale, bias, use_glu)
+
+
+@pytest.mark.parametrize("b,n,c,dtype,use_glu", [
+    (48, 16384, 32, torch.float32, False),  # the DAMSM step's largest
+    (16, 4096, 192, torch.bfloat16, True),
+    (3, 37, 6, torch.float32, False),       # C % 4 != 0: scalar path
+    (2, 100, 12, torch.bfloat16, True),     # C/2 % 4 != 0: scalar path
+    (160, 4096, 64, torch.float32, False),  # Stage B's largest
+])
+def test_k1_backward_of_an_offset_slice(dev, b, n, c, dtype, use_glu):
+    """|mean| six standard deviations from 0 (the sums about the pivot
+    keep fp32 from cancelling), at the DAMSM and Stage-B shapes and the
+    scalar paths."""
+    x, scale, bias = _inputs(b, n, c, torch.float32, dev, seed=7)
+    _k1_bwd_matches_twin((x / 1.5 + 6.0).to(dtype), scale, bias, use_glu)
+
+
+@pytest.mark.parametrize("use_glu", [False, True])
+def test_k1_backward_of_an_unaligned_slice(dev, use_glu):
+    """x and the cotangent one element past a 16-byte boundary: the plan
+    takes the scalar path, and the result is the twin's."""
+    b, n, c = 4, 1024, 64
+    buf = torch.randn(b * n * c + 1, device=dev).bfloat16()
+    x = buf[1:].view(b, n, c)
+    gbuf = torch.randn(b * n * (c // 2 if use_glu else c) + 1,
+                       device=dev).bfloat16()
+    gy = gbuf[1:].view(b, n, -1)
+    _, scale, bias = _inputs(b, n, c, torch.float32, dev, seed=8)
+    assert groupnorm.bwd_plan_for(x, gy, use_glu, NEEDS[0]).vec == 1
+    got = groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6,
+                                             use_glu, gy)
+    for name, g, w in zip(("dx", "dscale", "dbias"), got,
+                          _twin_vjp(x, scale, bias, use_glu, gy)):
+        _bwd_close(g, w, x.dtype, name, use_glu)
+
+
+@pytest.mark.parametrize("b,n,c,use_glu", [
+    (16, 4096, 64, True),     # resident
+    (16, 16384, 96, False),   # streaming
+    (16, 65536, 64, True),    # streaming, the largest
+])
+def test_k1_backward_is_bit_reproducible(dev, b, n, c, use_glu):
+    x, scale, bias = _inputs(b, n, c, torch.bfloat16, dev, seed=9)
+    gy = _cotangent(x, use_glu, 9)
+    a = groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6,
+                                           use_glu, gy)
+    b_ = groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6,
+                                            use_glu, gy)
+    assert all(torch.equal(u, v) for u, v in zip(a, b_))
+
+
+@pytest.mark.parametrize("needs,kernels", [((True, True, True), 2),
+                                           ((True, False, False), 1)])
+def test_k1_backward_in_a_graph(dev, needs, kernels):
+    """Captured in a CUDA graph: one call is the main kernel and, for
+    dscale and dbias, the kernel that sums their partials, and no other
+    node (no memset, no copy); the replay equals the eager call to the
+    bit."""
+    x, scale, bias = _inputs(16, 16384, 64, torch.bfloat16, dev, seed=10)
+    gy = _cotangent(x, True, 10)
+
+    def call():
+        return groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6,
+                                                  True, gy, needs)
+
+    assert _graph_nodes(call) == (kernels, kernels)
+    eager = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    for u, v in zip(eager, captured):
+        assert (u is None and v is None) or torch.equal(u, v)
+
+
+def test_k1_backward_rejects_bad_input(dev):
+    x, scale, bias = _inputs(2, 16, 64, torch.float32, dev)
+    gy = torch.randn(2, 16, 64, device=dev)
+    with pytest.raises(ValueError, match="cotangent"):
+        groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6, True, gy)
+    with pytest.raises(ValueError, match="cotangent"):
+        groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6, False,
+                                           gy.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
+        groupnorm.group_norm_backward_cuda(x.cpu(), scale, bias, 32, 1e-6,
+                                           False, gy)
+    with pytest.raises(ValueError, match="no gradient"):
+        groupnorm.group_norm_backward_cuda(x, scale, bias, 32, 1e-6, False,
+                                           gy, (False, False, False))
+
+
+def test_gan_step_runs_k1_backward_once_per_forward(dev):
+    """A tiny fp32 Stage-C step on the card (G, the discriminators, the
+    frozen image encoder): as many K1 backward calls as K1 forward
+    launches, and every gradient within 1e-3 relative norm of the CPU's
+    (the twins)."""
+    from objgan_tpu_torch.train import card_check
+
+    before = (groupnorm.launches, groupnorm.bwd_launches)
+    r = card_check.tiny_step_on_card("gan", dev)
+    fwd = groupnorm.launches - before[0]
+    assert fwd > 0 and groupnorm.bwd_launches - before[1] == fwd
+    assert r["metric_err"] <= card_check.METRIC_RTOL
+    assert r["grad_err"] <= card_check.GRAD_RTOL, r["worst"]
+
+
 def _roi_inputs(b, h, w, c, o, dtype, dev, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     f = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
@@ -497,8 +693,8 @@ def test_kernels_read_nothing_past_their_inputs(dev):
 
 # -- K train steps as one CUDA-graph replay (TRAIN.STEPS_PER_EXECUTION) --------
 
-KERNEL_NAMES = {"K1": "gn_fused_kernel", "K2": "roi_fwd_kernel",
-                "K3": "roi_bwd_kernel"}
+KERNEL_NAMES = {"K1": "gn_fused_kernel", "K1 backward": "gn_bwd_kernel",
+                "K2": "roi_fwd_kernel", "K3": "roi_bwd_kernel"}
 
 
 def _tiny_cfg():
@@ -582,18 +778,21 @@ def test_k_step_graph_equals_eager_steps_to_the_bit(dev,
 
 def test_k_step_graph_holds_the_kernels(dev):
     """The tiny Stage-C graph of K = 2 steps holds twice one eager step's
-    K1, K2 and K3 launches as kernel nodes, named in its DOT print, and
-    each wrapper counted them once while the graph was captured."""
+    K1, K1 backward, K2 and K3 launches as kernel nodes, named in its DOT
+    print, and each wrapper counted them once while the graph was
+    captured."""
     from objgan_tpu_torch.ops import roi_align
     from objgan_tpu_torch.train import card_check
     from objgan_tpu_torch.train.common import index_stack
     from objgan_tpu_torch.utils.profiling import graph_kernel_nodes
 
     r = card_check.graph_against_eager("gan", _tiny_cfg(), k=2, device=dev)
-    before = (groupnorm.launches, dict(roi_align.launches))
+    before = (groupnorm.launches, dict(roi_align.launches),
+              groupnorm.bwd_launches)
     batches, noises = r["inputs"]
     r["eager"].train_step(index_stack(batches, 0), *index_stack(noises, 0))
     per_step = {"K1": groupnorm.launches - before[0],
+                "K1 backward": groupnorm.bwd_launches - before[2],
                 "K2": roi_align.launches["fwd"] - before[1]["fwd"],
                 "K3": roi_align.launches["bwd"] - before[1]["bwd"]}
     assert all(per_step.values()), per_step

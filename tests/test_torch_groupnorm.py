@@ -225,3 +225,254 @@ def test_twin_computes_in_fp32_or_the_inputs_wider_precision(dtype):
     want = ((xf - mean) * torch.rsqrt(var + 1e-6)).reshape(2, 5, 8) \
         * scale.to(ct) + bias.to(ct)
     assert torch.equal(got, want.to(dt))
+
+
+# -- K1 backward's plan (``_bwd_plan``) ----------------------------------------
+
+ALL = (True, True, True)
+DX = (True, False, False)
+# (B, N, C, itemsize, use_glu, needs): the GroupNorm calls of a coco_objgan
+# train step at batch 16, 27 distinct (the bf16 G and discriminators want
+# every gradient; the frozen fp32 image encoder dx alone; B = 160 is the
+# object discriminator's 10 objects per image)
+GAN_BWD_SHAPES = [
+    (16, 1024, 128, 2, False, ALL), (16, 1024, 256, 2, False, ALL),
+    (16, 16, 256, 2, False, ALL), (16, 16, 512, 2, False, ALL),
+    (16, 16384, 96, 2, False, ALL), (16, 256, 128, 2, False, ALL),
+    (16, 256, 256, 2, False, ALL), (16, 256, 512, 2, False, ALL),
+    (16, 4096, 128, 2, False, ALL), (16, 4096, 96, 2, False, ALL),
+    (16, 64, 256, 2, False, ALL), (16, 64, 512, 2, False, ALL),
+    (160, 16, 512, 2, False, ALL),
+    (16, 1024, 128, 2, True, ALL), (16, 16384, 192, 2, True, ALL),
+    (16, 16384, 64, 2, True, ALL), (16, 256, 256, 2, True, ALL),
+    (16, 4096, 192, 2, True, ALL), (16, 4096, 64, 2, True, ALL),
+    (16, 64, 512, 2, True, ALL), (16, 65536, 64, 2, True, ALL),
+    (16, 1024, 128, 4, False, DX), (16, 16, 512, 4, False, DX),
+    (16, 16384, 32, 4, False, DX), (16, 256, 256, 4, False, DX),
+    (16, 4096, 64, 4, False, DX), (16, 64, 512, 4, False, DX),
+]
+# a DAMSM step (cfg/damsm_coco.yml, B = 48, the image encoder trained) and
+# a Stage-B step (cfg/shape_coco.yml, 160 objects, fp32; two of its 11
+# calls want dx alone)
+DAMSM_BWD_SHAPES = [(b, n, c, 4, False, ALL)
+                    for b, n, c, _, _ in DAMSM_SHAPES]
+SHAPE_BWD_SHAPES = [
+    (160, 1024, 64, 4, False, ALL), (160, 256, 128, 4, False, ALL),
+    (160, 256, 128, 4, False, DX), (160, 4096, 64, 4, False, ALL),
+    (160, 64, 256, 4, False, ALL), (160, 64, 256, 4, False, DX),
+]
+
+
+def _keep(c, itemsize, use_glu, needs):
+    """Bytes a kept row holds: x, and the cotangent where dx is wanted;
+    nothing for a call of one pass (no GLU, no dx)."""
+    cd = c // 2 if use_glu else c
+    if not (use_glu or needs[0]):
+        return 0
+    return (c + cd * needs[0]) * itemsize
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("b,n,c,itemsize,use_glu,needs",
+                         GAN_BWD_SHAPES + DAMSM_BWD_SHAPES + SHAPE_BWD_SHAPES)
+def test_bwd_plan(b, n, c, itemsize, use_glu, needs, sms):
+    plan = tgn._bwd_plan(b, n, c, itemsize, use_glu, needs, sms)
+    cs, rows = plan.cluster, plan.rows
+    ranges = [(r * rows, min(n, (r + 1) * rows)) for r in range(cs)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(r1 > r0 for r0, r1 in ranges)
+    # every batch element's cluster in one wave, two CTAs per SM
+    assert cs in (1, 2, 4, 8, 12)
+    assert b * cs <= tgn._slots(sms) or cs == 1
+    keep = _keep(c, itemsize, use_glu, needs)
+    assert plan.smem == tgn._bwd_fixed_smem(c, plan.vec) + plan.res_rows * keep
+    assert plan.smem <= HALF_SMEM
+    assert 0 <= plan.res_rows <= rows
+    assert plan.params == (needs[1] or needs[2])
+    # every byte read once exactly when every row is kept (or one pass)
+    assert (plan.regime == "resident") == (plan.res_rows == rows or not keep)
+    # resident whenever a cluster of the wave could keep the slice
+    cap = (HALF_SMEM - tgn._bwd_fixed_smem(c, plan.vec)) // max(keep, 1)
+    wave = [w for w in (1, 2, 4, 8, 12) if b * w <= tgn._slots(sms)]
+    if keep and any(-(-n // w) <= cap for w in wave):
+        assert plan.regime == "resident"
+    if plan.regime == "streaming":
+        # as many rows kept as fit
+        assert plan.smem + keep > HALF_SMEM
+    # 16-byte vectors (8-byte for bf16 under GLU) at every train width
+    assert plan.vec == (4 if use_glu or itemsize == 4 else 8)
+
+
+# (B, N, C, itemsize, use_glu) -> (regime, cluster, kept rows) on a 132-SM
+# H100, every gradient wanted
+GAN_BWD_PLANS = {
+    (16, 65536, 64, 2, True): ("streaming", 12, 560),
+    (16, 16384, 192, 2, True): ("streaming", 12, 172),
+    (16, 16384, 96, 2, False): ("streaming", 12, 264),
+    (16, 4096, 128, 2, False): ("streaming", 12, 194),
+    (16, 4096, 64, 2, True): ("resident", 8, 512),
+    (16, 1024, 256, 2, False): ("resident", 12, 86),
+    (16, 256, 512, 2, False): ("resident", 8, 32),
+    (16, 16, 512, 2, False): ("resident", 1, 16),
+    (160, 16, 512, 2, False): ("resident", 1, 16),
+}
+
+
+@pytest.mark.parametrize("shape", GAN_BWD_PLANS)
+def test_bwd_plan_of_train_shapes(shape):
+    plan = tgn._bwd_plan(*shape, ALL, 132)
+    assert (plan.regime, plan.cluster, plan.res_rows) == GAN_BWD_PLANS[shape]
+
+
+def test_bwd_plan_threshold_and_needs():
+    """bf16 (2, N, 64): a row keeps x and dy (256 bytes), a CTA 404 rows,
+    so clusters of 12 keep N = 4848 and stream at 4849; without dx the
+    cotangent is not kept, and without GLU a dx-less call is one pass that
+    keeps nothing and reads everything once."""
+    assert tgn._bwd_plan(2, 4848, 64, 2, False, ALL, 132)[:4] == (
+        "resident", 12, 404, 404)
+    assert tgn._bwd_plan(2, 4849, 64, 2, False, ALL, 132).regime \
+        == "streaming"
+    glu = tgn._bwd_plan(2, 4096, 64, 2, True, (False, True, True), 132)
+    assert glu.smem - tgn._bwd_fixed_smem(64, 4) == glu.res_rows * 128
+    one = tgn._bwd_plan(2, 65536, 64, 2, False, (False, True, True), 132)
+    assert (one.regime, one.res_rows, one.params) == ("resident", 0, True)
+    assert not tgn._bwd_plan(2, 64, 64, 2, False, DX, 132).params
+    with pytest.raises(ValueError, match="no gradient"):
+        tgn._bwd_plan(2, 64, 64, 2, False, (False, False, False), 132)
+
+
+def test_bwd_vector_width():
+    assert tgn._bwd_plan(16, 64, 512, 2, False, ALL, 132).vec == 8
+    assert tgn._bwd_plan(16, 64, 512, 2, True, ALL, 132).vec == 4
+    assert tgn._bwd_plan(16, 64, 512, 4, True, ALL, 132).vec == 4
+    assert tgn._bwd_plan(3, 37, 6, 4, False, ALL, 132).vec == 1     # C % 4
+    assert tgn._bwd_plan(2, 100, 12, 2, True, ALL, 132).vec == 1    # C/2 % 4
+    assert tgn._bwd_plan(16, 64, 512, 2, True, ALL, 132,
+                         aligned=False).vec == 1
+    with pytest.raises(ValueError, match="too wide"):
+        tgn._bwd_plan(2, 16, 4096, 4, False, ALL, 132)
+
+
+@pytest.mark.parametrize("entry,argtypes", [
+    ("objgan_group_norm_bwd", tgn._BWD_ARGTYPES),
+    ("objgan_group_norm_max_clusters", tgn._MAX_CLUSTERS_ARGTYPES),
+])
+def test_bwd_argtypes_match_the_c_signature(entry, argtypes):
+    """The ctypes types of the backward's entry and of the occupancy query
+    (forward and backward in one) follow their C parameters: an int
+    pointer is POINTER(c_int), any other pointer c_void_p."""
+    src = CU.read_text()
+    sig = re.search(rf"int {entry}\((.*?)\)\s*\{{", src, re.S)
+    params = [p.strip() for p in sig.group(1).split(",")]
+    want = [ctypes.POINTER(ctypes.c_int) if p.startswith("int*") else
+            ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.startswith("float") else ctypes.c_int
+            for p in params]
+    assert list(argtypes) == want
+
+
+def test_bwd_fixed_smem_matches_the_kernel_source():
+    """``_bwd_fixed_smem`` mirrors the kernel's bwd_tile_offset, and the
+    kernel's names keep K1's forward roofline apart: each holds gn_bwd and
+    none gn_fused_kernel."""
+    src = CU.read_text()
+    assert "const int raw = (kThreads * V + 16 * C) * 4;" in src
+    assert tgn._bwd_fixed_smem(64, 8) == -(-(256 * 8 + 16 * 64) * 4
+                                           // 128) * 128
+    names = set(re.findall(
+        r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", src))
+    assert names == {"gn_fused_kernel", "gn_bwd_kernel",
+                     "gn_bwd_param_kernel"}
+
+
+def _pivot_vjp(x, scale, bias, groups, eps, use_glu, gy):
+    """The algebra K1 backward implements, in fp64: statistics and the
+    cotangent's sums about the pivot k (the group's first value in row 0),
+    per batch element, channel sums P = sum dy and Q = sum dy (x - k)."""
+    import torch
+
+    b, n, c = x.shape
+    cg = c // groups
+    m = n * cg
+    k = x[:, 0, :].reshape(b, groups, cg)[..., :1].expand(b, groups, cg)
+    k = k.reshape(b, 1, c)
+    s = (x - k).sum(1).reshape(b, groups, cg).sum(-1)
+    s2 = ((x - k) ** 2).sum(1).reshape(b, groups, cg).sum(-1)
+    d = s / m
+    r = (s2 / m - d * d).clamp(min=0.0).add(eps).rsqrt()
+    per_c = lambda t: t.repeat_interleave(cg, dim=1)[:, None, :]  # noqa
+    mu, rc, dc = per_c(k[:, 0, ::cg] + d), per_c(r), per_c(d)
+    if use_glu:
+        a_c = rc * scale
+        y = x * a_c + (bias - mu * a_c)
+        h = c // 2
+        sig = torch.sigmoid(y[..., h:])
+        dy = torch.cat([gy * sig, gy * y[..., :h] * sig * (1 - sig)], -1)
+    else:
+        dy = gy
+    p = dy.sum(1)                       # (b, c)
+    q = (dy * (x - k)).sum(1)
+    dscale = (r.repeat_interleave(cg, 1) * (q - d.repeat_interleave(cg, 1)
+                                           * p)).sum(0)
+    dbias = p.sum(0)
+    sp = (scale * p).reshape(b, groups, cg).sum(-1)
+    sq = (scale * (q - d.repeat_interleave(cg, 1) * p)).reshape(
+        b, groups, cg).sum(-1)
+    beta = per_c(-r ** 3 * sq / m)
+    const = per_c(-r * sp / m)
+    dx = rc * scale * dy + beta * (x - mu) + const
+    return dx, dscale, dbias
+
+
+@pytest.mark.parametrize("b,n,c,groups,use_glu,offset", [
+    (2, 7, 8, 4, False, 0.0), (2, 7, 8, 4, True, 0.0),
+    (3, 5, 96, 32, False, 6.0), (3, 5, 96, 32, True, 6.0),
+    (2, 9, 32, 32, False, 40.0), (1, 13, 12, 2, True, -3.0),
+])
+def test_pivot_closed_form_is_the_twins_vjp(b, n, c, groups, use_glu, offset):
+    """In fp64 the pivot formulas that csrc/groupnorm.cu's backward
+    implements equal ``group_norm_backward_reference`` (autograd through
+    the twin) to rounding, GLU included, with one channel or three per
+    group and |mean| up to 40 standard deviations from 0."""
+    import torch
+
+    g = torch.Generator().manual_seed(b * 1000 + c)
+    x = torch.randn(b, n, c, generator=g, dtype=torch.float64) + offset
+    scale = torch.rand(c, generator=g, dtype=torch.float64) + 0.5
+    bias = torch.randn(c, generator=g, dtype=torch.float64)
+    gy = torch.randn(b, n, c // 2 if use_glu else c, generator=g,
+                     dtype=torch.float64)
+    want = tgn.group_norm_backward_reference(x, scale, bias, groups, 1e-6,
+                                             use_glu, gy)
+    got = _pivot_vjp(x, scale, bias, groups, 1e-6, use_glu, gy)
+    for u, v in zip(got, want):
+        assert torch.allclose(u, v, rtol=1e-9, atol=1e-9)
+
+
+def test_backward_entry_refuses_cpu_tensor():
+    import torch
+
+    x = torch.zeros(1, 16, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgn.group_norm_backward_cuda(x, torch.ones(64), torch.zeros(64), 32,
+                                     1e-6, False, torch.zeros(1, 16, 64))
+
+
+def test_cpu_backward_is_autograd_through_the_twin():
+    """On the CPU the backward never reaches the kernel (nor counts it):
+    autograd through ``group_norm_reference``, equal to the twin's VJP."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 4, 4, 64, generator=g, requires_grad=True)
+    scale = (torch.rand(64, generator=g) + 0.5).requires_grad_()
+    bias = torch.randn(64, generator=g).requires_grad_()
+    gy = torch.randn(2, 4, 4, 32, generator=g)
+    before = tgn.bwd_launches
+    y = tgn.group_norm(x, scale, bias, 32, 1e-6, True)
+    got = torch.autograd.grad(y, (x, scale, bias), gy)
+    assert tgn.bwd_launches == before
+    want = tgn.group_norm_backward_reference(x, scale, bias, 32, 1e-6, True,
+                                             gy)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))

@@ -92,9 +92,10 @@ class TestGroupNormTwin:
 
     @pytest.mark.parametrize("use_glu", [False, True])
     def test_backward_matches_jax_vjp(self, use_glu):
-        """K1's backward on the card is ``group_norm_backward_reference``,
-        the twin's VJP with the statistics recomputed: against ``jax.vjp``
-        of the JAX reference, as its ``custom_vjp`` backward computes it."""
+        """``group_norm_backward_reference``, the twin's VJP with the
+        statistics recomputed, which K1 backward on the card is held to:
+        against ``jax.vjp`` of the JAX reference, as its ``custom_vjp``
+        backward computes it."""
         x, scale, bias = _gn_inputs((2, 6, 6, 96), 5)
         c_out = 48 if use_glu else 96
         g = np.random.default_rng(6).normal(size=(2, 6, 6, c_out)).astype(
