@@ -9,9 +9,15 @@ FID/IS and of the ``inception`` DAMSM image encoder. Port of
   (bilinear, no antialias, as torch's ``F.interpolate``), -> ``mixed_6e``
   (B, 17, 17, 768), ``pool`` (B, 2048) and ``logits`` (B, 1000), fp32.
 * ``InceptionEncoder``: the lineage's ``CNN_ENCODER`` on it: the backbone
-  frozen (no gradient reaches it or passes through it) and two trainable
-  projections, a bias-free 1x1 conv of the regions and a dense layer with
-  bias of the pool; the same interface as ``damsm.CNNEncoder``.
+  frozen (its parameters take no gradient, so no optimiser holds or moves
+  them) and two trainable projections, a bias-free 1x1 conv of the regions
+  and a dense layer with bias of the pool; the same interface as
+  ``damsm.CNNEncoder``. As in the lineage, a gradient passes through the
+  frozen backbone to images that require one: Stage C's DAMSM term reaches
+  G through it. The JAX package stops that gradient (``stop_gradient`` on
+  both features), so there G trains without its DAMSM term; ``ROADMAP.md``
+  pins the difference. Real images (DAMSM pretraining, evaluation) require
+  no gradient, and no autograd graph is built through the backbone.
 
 Submodules carry the JAX module names, so ``core/bridge.py`` carries a JAX
 param tree across. No weight file ships: ``load_torchvision_checkpoint``
@@ -224,7 +230,9 @@ class InceptionEncoder(nn.Module):
     """The lineage's ``CNN_ENCODER``: a frozen Inception-v3 ``backbone``
     and trainable projections ``emb_features`` (1x1 conv, no bias) and
     ``emb_cnn_code`` (dense, with bias). images -> (regions (B, 289, D),
-    global (B, D)), fp32."""
+    global (B, D)), fp32. The backbone's parameters take no gradient; the
+    images' gradient passes through it, as through the lineage's frozen
+    encoder."""
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -237,8 +245,7 @@ class InceptionEncoder(nn.Module):
 
     def forward(self, images: torch.Tensor):
         feats = self.backbone(images)
-        regions = feats["mixed_6e"].detach()
-        pool = feats["pool"].detach()
+        regions, pool = feats["mixed_6e"], feats["pool"]
         b, r1, r2, _ = regions.shape
         reg = self.emb_features(regions)
         return reg.reshape(b, r1 * r2, -1), self.emb_cnn_code(pool)

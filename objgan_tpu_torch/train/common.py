@@ -276,7 +276,10 @@ class MultiStep:
     Each call is the span ``exec`` (``utils/profiling.py``), with
     ``steps`` K, and on a card its replay's device time, between two
     timing events on the current stream; each capture sets the counter
-    ``exec.graph_nodes``, the graph's nodes over K."""
+    ``exec.graph_nodes``, the graph's nodes over K. The spans of device
+    time that the steps open (``profiling.device_timed``) are captured
+    with the graph, and a replay under the recorder adds them beside
+    ``exec`` (``profiling.replayed``)."""
 
     def __init__(self, trainer: Trainer):
         self.trainer = trainer
@@ -288,6 +291,7 @@ class MultiStep:
         self._out = None
         self._keys: List[str] = []
         self._fingerprint = None
+        self._marks: List = []
 
     def __deepcopy__(self, memo):
         return None  # the graph belongs to the original's tensors
@@ -330,9 +334,11 @@ class MultiStep:
                                 tensor_leaves((batches, noises))):
                 dst.copy_(src)
             start = self.trainer.step
+            profiling.settle()
             span.device_start()
             self._graph.replay()
             span.device_end()
+            profiling.replayed(self._marks)
             self.trainer.step = start + k
             return dict(zip(self._keys, self._out.clone().unbind()))
 
@@ -390,7 +396,8 @@ class MultiStep:
             # thread_local: the feed's producer thread goes on copying to
             # the card on its own stream meanwhile
             with torch.cuda.graph(graph, stream=self._stream,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    profiling.capturing() as marks:
                 means = self._loop(batches, noises)
                 self._out = torch.stack(list(means.values()))
         except Exception as e:
@@ -400,5 +407,6 @@ class MultiStep:
             self.trainer.step = start
         self._keys = list(means)
         self._graph = graph
+        self._marks = marks
         profiling.count("exec.graph_nodes", round(profiling.graph_nodes(
             graph.raw_cuda_graph()) / self._k(batches)))

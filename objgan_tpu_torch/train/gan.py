@@ -13,16 +13,19 @@ the EMA copy of G moves with decay 0.999.
 
 The DAMSM text and image encoders and the label table are frozen: the
 encoders run without dropout and without parameter gradients (the image
-encoder still passes the gradient on to the fake images); ``init_state``
-takes pretrained encoder weights. Under data parallelism each rank runs
-the step on its rows of the global batch, and the losses are its shares of
-the global batch's (``parallel/sharding.py``): the mismatched captions roll
-the global batch, the object terms divide by its valid objects, and the
-DAMSM term scores the gathered global batch; the EMA moves identically on
-every rank. With ``GAN.REMAT: stages`` every D and
-image-encoder forward runs under ``torch.utils.checkpoint``, as do G's
+encoder still passes the gradient on to the fake images, as the lineage's
+frozen encoder does; the JAX package's inception backbone stops it);
+``init_state`` takes pretrained encoder weights. Under data parallelism
+each rank runs the step on its rows of the global batch, and the losses
+are its shares of the global batch's (``parallel/sharding.py``): the
+mismatched captions roll the global batch, the object terms divide by its
+valid objects, and the DAMSM term scores the gathered global batch; the
+EMA moves identically on every rank. With ``GAN.REMAT: stages`` every D
+and image-encoder forward runs under ``torch.utils.checkpoint``, as do G's
 attention stages. ``state_dict`` covers every network, the EMA generator,
-the label table, every optimiser and the step (``train/common.py``).
+the label table, every optimiser and the step (``train/common.py``). The
+image encoder's forward and its gradient's way back are the spans
+``damsm.img_enc`` and ``damsm.img_enc.grad`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from objgan_tpu_torch.models.generator import GNet, kl_loss
 from objgan_tpu_torch.ops import rasterize
 from objgan_tpu_torch.parallel.sharding import global_batch, local_rows
 from objgan_tpu_torch.train.common import Trainer, adam
+from objgan_tpu_torch.utils import profiling
 
 
 def _default_label_table(cfg: Config,
@@ -275,8 +279,10 @@ class GanTrainer(Trainer):
         g_total = g_total + g_obj
         metrics["g_obj"] = g_obj
 
-        # DAMSM on the finest fake, through the frozen image encoder
-        regions, global_f = self._ck(self.img_enc, fakes[-1])
+        # DAMSM on the finest fake, through the frozen image encoder; its
+        # forward and its gradient's way back to the fake are device spans
+        regions, global_f = profiling.device_timed(
+            "damsm.img_enc", lambda x: self._ck(self.img_enc, x), fakes[-1])
         sm = cfg.TRAIN.SMOOTH
         matching, _ = damsm_loss(regions, global_f, words, sent, lens,
                                  batch["class_ids"], sm)

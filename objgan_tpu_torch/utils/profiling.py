@@ -6,7 +6,9 @@ counterpart of ``objgan_tpu/utils/profiling.py``.
   profiler plugin and Perfetto load, with the program's spans of the
   region added (category ``program_span``), the feed producer's too;
 * the recorder: ``span`` and ``side_span`` time a stretch of the K-step
-  training loop, ``count`` sets a counter, ``recorded()`` reads both;
+  training loop, ``device_timed`` the device's work of one call and of its
+  gradient's way back, ``count`` sets a counter, ``recorded()`` reads
+  them;
 * ``device_profile(fn)``: one call of ``fn`` under the profiler, its wall
   time and the device's busy time (the union of the kernels' intervals);
 * ``graph_nodes``, ``graph_kernel_nodes``: a captured CUDA graph's nodes.
@@ -27,6 +29,18 @@ profiler's host clock: an event's ``trace_start_ns() + time_range.start *
 1000`` (``prof.profiler.kineto_results``) and a Chrome trace's
 ``baseTimeNanoseconds + ts * 1000`` are on it. Counters are plain
 integers, always kept, across restarts too.
+
+A span of ``device_timed`` is the device's time alone, between two timing
+events on the stream. Inside the capture of a K-step CUDA graph
+(``capturing``) its events are captured as event-record nodes, always,
+since the recorder is off while set-up captures: every replay records
+them anew, and a replay under the recorder adds one span per name with
+the K steps' device time (``replayed``). The next traced replay records
+over the same events, so its spans replace the last one's: a traced
+stretch keeps its last replay's, and no traced replay waits for the card.
+They are read by ``recorded()`` or, waiting for the card once, before
+the first replay after the stretch (``settle``). Off and outside a
+capture a span costs one check; inside a graph, its nodes.
 """
 
 from __future__ import annotations
@@ -94,6 +108,8 @@ class _Recorder:
         self.spans: List[_Span] = []
         self.current: Optional[_Span] = None
         self.counters: Dict[str, int] = {}
+        self.capture: Optional[List[_GraphMark]] = None
+        self.unsettled: List[_Span] = []
 
 
 class _Off:
@@ -114,8 +130,18 @@ class _Off:
     def device_end(self) -> None:
         pass
 
+    def start(self) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
 
 _OFF = _Off()
+
+
+def _timing_event(external: bool = False):
+    return torch.cuda.Event(enable_timing=True, external=external)
 
 
 class _Span:
@@ -123,14 +149,15 @@ class _Span:
     the end of its ``with`` block), and kept in the buffer from then."""
 
     __slots__ = ("name", "steps", "start_ns", "end_ns", "thread", "tid",
-                 "parent", "device", "_range", "_loop")
+                 "parent", "device", "device_ms", "_range", "_loop")
 
     def __init__(self, name: str, steps: int, loop: bool):
         self.name, self.steps, self._loop = name, steps, loop
         t = threading.current_thread()
         self.thread, self.tid = t.name, threading.get_native_id()
         self.parent = _REC.current
-        self.device = None
+        self.device = None  # [(start event, end event)], summed
+        self.device_ms = None
         if loop:
             _REC.current = self
             self._range = torch.autograd.profiler.record_function(name)
@@ -155,13 +182,54 @@ class _Span:
 
     def device_start(self) -> None:
         """Record the start of the device time on the current stream."""
-        self.device = (torch.cuda.Event(enable_timing=True),
-                       torch.cuda.Event(enable_timing=True))
-        self.device[0].record()
+        self.device = [(_timing_event(), _timing_event())]
+        self.device[0][0].record()
 
     def device_end(self) -> None:
         """Record its end; ``recorded()`` resolves the pair."""
-        self.device[1].record()
+        self.device[0][1].record()
+
+    def start(self) -> None:
+        """Open a span of ``_device_span``: now, and on a card a timing
+        event on the current stream (the span was made with a device
+        list)."""
+        self.start_ns = time.time_ns()
+        if self.device is not None:
+            self.device_start()
+
+    def end(self) -> None:
+        if self.device is not None:
+            self.device_end()
+        self.close()
+
+    def settle(self) -> None:
+        """``device_ms`` from the events, waited for (once)."""
+        if self.device and self.device_ms is None:
+            for _, end in self.device:
+                end.synchronize()
+            self.device_ms = sum(a.elapsed_time(b) for a, b in self.device)
+
+
+class _GraphMark:
+    """A span of device time inside a CUDA-graph capture: two timing
+    events that the capture holds as event-record nodes, so that every
+    replay records them anew. ``done`` counts its ends recorded at the
+    capture."""
+
+    __slots__ = ("name", "events", "done")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.events = (_timing_event(True), _timing_event(True))
+        self.done = 0
+
+    def start(self) -> None:
+        self.events[0].record()
+        self.done += 1
+
+    def end(self) -> None:
+        self.events[1].record()
+        self.done += 1
 
 
 _REC = _Recorder()
@@ -194,6 +262,104 @@ def side_span(name: str, steps: int = 0):
     return _Span(name, steps, False) if _REC.on else _OFF
 
 
+def _device_span(name: str, cuda: bool):
+    """A span of device time alone, from its ``start()`` to its
+    ``end()``, which autograd may call in the backward pass: inside a
+    capture (``capturing``) a ``_GraphMark``; else, while the recorder is
+    on (asked now, on the loop's thread), a span of one step, timed by
+    events on a card (``cuda``); else the shared do-nothing object."""
+    if _REC.capture is not None:
+        mark = _GraphMark(name)
+        _REC.capture.append(mark)
+        return mark
+    if not _ask():
+        return _OFF
+    s = _Span(name, 1, False)
+    s.device = [] if cuda else None
+    return s
+
+
+class _OnGrad(torch.autograd.Function):
+    """Identity forward; in the backward, ``fn()`` once every gradient
+    of the outputs has arrived, then the gradients on unchanged."""
+
+    @staticmethod
+    def forward(ctx, fn, *xs):
+        ctx.fn = fn
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.fn()
+        return (None, *grads)
+
+
+def device_timed(name: str, fn, x: torch.Tensor):
+    """``fn(x)``, a tuple of tensors, with two spans of device time
+    (``_device_span``): ``name``, its forward, and where a gradient flows,
+    ``name + ".grad"``, the gradient's way back from the outputs to ``x``
+    (identity marks on both ends, whose backward records the events).
+    Without a span, ``fn(x)`` alone, with no mark."""
+    fwd = _device_span(name, x.is_cuda)
+    if fwd is _OFF:
+        return fn(x)
+    grad = x.requires_grad and torch.is_grad_enabled()
+    if grad:
+        back = _device_span(name + ".grad", x.is_cuda)
+        (x,) = _OnGrad.apply(back.end, x)
+    fwd.start()
+    out = fn(x)
+    fwd.end()
+    if grad and any(t.requires_grad for t in out):
+        out = _OnGrad.apply(back.start, *out)
+    return out
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a K-step graph is captured: ``with capturing() as marks``
+    collects the graph's spans of device time; those that met both ends
+    are the graph's (``replayed``)."""
+    marks: List[_GraphMark] = []
+    _REC.capture = marks
+    try:
+        yield marks
+    finally:
+        _REC.capture = None
+        marks[:] = [m for m in marks if m.done == 2]
+
+
+def replayed(marks: Sequence[_GraphMark]) -> None:
+    """After a replay of the graph that holds ``marks``: while the
+    recorder is on (the loop thread's last answer), one span per name,
+    its ``steps`` the name's marks (one a step), its device time theirs
+    summed, and its host times the call's, in place of the last replay's
+    spans, whose events this replay records over."""
+    if not _REC.on:
+        return
+    while _REC.unsettled:  # one at a time: the producer thread appends
+        s = _REC.unsettled.pop()
+        if s in _REC.spans:
+            _REC.spans.remove(s)
+    by_name: Dict[str, list] = {}
+    for m in marks:
+        by_name.setdefault(m.name, []).append(m.events)
+    for name, pairs in by_name.items():
+        s = _Span(name, len(pairs), False)
+        s.device = pairs
+        s.close()
+        _REC.unsettled.append(s)
+
+
+def settle() -> None:
+    """Before a replay outside a traced stretch: read the device time of
+    the last traced replay's spans (``replayed``), waiting for it, before
+    this replay records their events anew."""
+    if not _REC.on:
+        while _REC.unsettled:
+            _REC.unsettled.pop().settle()
+
+
 def restart() -> None:
     """A new stretch: ask the profiler now, on the loop's thread, and
     start the buffer anew if it is on. Each K-step loop calls it as it
@@ -215,19 +381,17 @@ def recorded() -> Dict:
     ``tid`` (its native id), ``parent`` (the index in this list of the
     span it began in, or None), ``steps`` (0 where none was given) and
     ``device_ms`` (the device time between ``device_start`` and
-    ``device_end``, waited for here; None where there is none)."""
+    ``device_end``, or summed over a replay's K steps, waited for here;
+    None where there is none)."""
     spans = list(_REC.spans)
     index = {id(s): i for i, s in enumerate(spans)}
     out = []
     for s in spans:
-        device_ms = None
-        if s.device is not None:
-            s.device[1].synchronize()
-            device_ms = s.device[0].elapsed_time(s.device[1])
+        s.settle()
         out.append({"name": s.name, "start_ns": s.start_ns,
                     "end_ns": s.end_ns, "thread": s.thread, "tid": s.tid,
                     "parent": index.get(id(s.parent)), "steps": s.steps,
-                    "device_ms": device_ms})
+                    "device_ms": s.device_ms})
     return {"spans": out, "counters": dict(_REC.counters)}
 
 

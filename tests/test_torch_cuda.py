@@ -4,9 +4,11 @@ DAMSM step and a Stage-B step give it and under autograd (with a tiny
 Stage-B step on the card against the CPU), K2 and K3
 (objgan_tpu_torch/csrc/roi_align.cu) at the train step's shapes and under
 autograd, and all three with every input ending at an unmapped page
-(``tools/guard_pages.py``). Card-only: marked ``cuda`` and
-skipped without a CUDA device. This file imports neither JAX nor the
-parity helpers, so on a GPU host it runs as
+(``tools/guard_pages.py``); the K-step CUDA graph against eager steps,
+with the inception DAMSM encoder too, and its spans of device time
+against the profiler (``marks_against_profiler``). Card-only: marked
+``cuda`` and skipped without a CUDA device. This file imports neither JAX
+nor the parity helpers, so on a GPU host it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -842,6 +844,137 @@ def test_k_step_replay_spans_on_a_card(dev):
     on_device = [e for e in prof.events() if e.name == "exec"
                  and e.device_type == torch.autograd.DeviceType.CUDA]
     assert all(e.is_user_annotation for e in on_device)
+
+
+def marks_against_profiler(trainer):
+    """One replay of ``trainer``'s K-step graph alone, under the profiler
+    and between two timing events of the stream: for each name of the
+    graph's spans of device time (``profiling.device_timed``), (the
+    events' device ms, the profiler's ms from the first device operation
+    inside the marks to the last one's end, the profiler's busy ms of the
+    operations inside), each summed over the K steps. The events are put
+    on the profiler's clock by the replay's ends: the time from the first
+    event to the replay's first operation is taken equal to that from its
+    last operation to the second event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from objgan_tpu_torch.utils.profiling import busy_ms
+
+    ms = trainer.multi_step()
+    graph, marks = ms.graph(), ms._marks
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ends[0].record()
+        graph.replay()
+        ends[1].record()
+        torch.cuda.synchronize()
+    # every operation on the card, ms on the profiler's clock; names with
+    # "#" are kernels too (ATen's elementwise lambdas, "{lambda(float)#1}")
+    ops = [(e.time_range.start / 1e3, e.time_range.end / 1e3)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    first, last = min(a for a, _ in ops), max(b for _, b in ops)
+    lead = (ends[0].elapsed_time(ends[1]) - (last - first)) / 2
+    origin = first - lead  # the first event on the profiler's clock
+    out = {}
+    for m in marks:
+        a = origin + ends[0].elapsed_time(m.events[0])
+        b = origin + ends[0].elapsed_time(m.events[1])
+        inside = [(max(s, a), min(e, b)) for s, e in ops if e > a and s < b]
+        got = out.setdefault(m.name, [0.0, 0.0, 0.0])
+        got[0] += b - a
+        got[1] += max(e for _, e in inside) - min(s for s, _ in inside)
+        got[2] += busy_ms((1e3 * s, 1e3 * e, "") for s, e in inside)
+    return out
+
+
+_INCEPTION_TINY = {"TEXT": {"CNN_BACKBONE": "inception"},
+                   "TRAIN": {"GENERATOR_LR": 0.0, "DISCRIMINATOR_LR": 0.0}}
+
+_MARKS = """
+import importlib.util, json, sys
+import torch
+from objgan_tpu_torch.core.precision import true_fp32
+from objgan_tpu_torch.train import card_check
+spec = importlib.util.spec_from_file_location("card_tests", sys.argv[1])
+tests = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tests)
+true_fp32()
+cfg = tests._tiny_cfg().merged(tests._INCEPTION_TINY)
+dev = torch.device("cuda")
+trainer = card_check.fresh("gan", cfg, dev)
+inputs = card_check.stacked_inputs("gan", cfg, trainer, trainer.step, 8, dev)
+for _ in range(3):  # eager, captured, replayed
+    trainer.multi_train_step(*inputs)
+print(json.dumps(tests.marks_against_profiler(trainer)))
+"""
+
+
+def test_k_step_graph_with_the_inception_encoder(dev):
+    """K = 8 steps of the tiny Stage C with the inception DAMSM encoder
+    (its gradient through the frozen backbone to the fake) as one replay
+    against 8 eager steps, held as ``test_k_step_graph_equals_eager_steps``
+    holds K = 2, at learning rates 0: in PyTorch's default mode atomics
+    (the pools' and the resize's backward among them) part two eager runs
+    by O(1) within a few steps at the configured rates, while at rate 0
+    the parameters stay put and Adam's moments sum each step's gradient,
+    so the 8 steps' gradients are compared. Under the profiler a replay
+    records the spans of the encoder's forward and of its gradient's way
+    back, 8 steps each, with device time above 0 and within the replay's.
+    In a process of its own (``_MARKS``), each span's events read within
+    10 % of the profiler's device time from the first operation inside
+    its marks to the last one's end. There, on an H100, they agreed
+    within 0.1 %; in this process, after the file's earlier card tests,
+    the profiler has seen the gradient's operations over only 43-79 % of
+    its events, while the forward's agreed (an open question: the
+    benchmark reads the spans in a process of their own).
+    """
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from objgan_tpu_torch.train import card_check
+    from objgan_tpu_torch.utils import profiling
+
+    cfg = _tiny_cfg().merged(_INCEPTION_TINY)
+    r = card_check.graph_against_eager("gan", cfg, k=8, device=dev)
+    e = r["eager_err"]
+    assert e["bitwise"] or not r["spread"]["bitwise"], e
+    assert not e["misfits"], e
+    assert not r["k1_err"]["misfits"], r["k1_err"]
+    assert r["metric_err"] <= (0.0 if e["bitwise"] else 1e-5), r[
+        "metric_err"]
+    trainer = r["graph"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        trainer.multi_train_step(*r["inputs"])
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    spans = {s["name"]: s for s in profiling.recorded()["spans"]}
+    replay = spans["exec"]["device_ms"]
+    assert 0 < replay <= wall_ms
+    for name in ("damsm.img_enc", "damsm.img_enc.grad"):
+        assert spans[name]["steps"] == 8, spans[name]
+        assert 0 < spans[name]["device_ms"] < replay, (name, spans[name])
+    assert spans["damsm.img_enc"]["parent"] is not None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _MARKS, os.path.abspath(__file__)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    marks = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, (events, interval, busy) in marks.items():
+        assert abs(events - interval) <= 0.1 * interval, (
+            name, events, interval, busy)
 
 
 def test_k_step_graph_refuses_a_replaced_trainer(dev):
