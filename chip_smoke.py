@@ -40,7 +40,10 @@ and strict); and checks every hand-written kernel on them:
                 busy share and the kernels that take its time;
 8. train_k1     every K1 call of one more train step (the bf16 G and
                 discriminators, the fp32 image encoder), checked as in
-                phase 3;
+                phase 3; then (``train_k1b``) every K1 backward call of
+                that step, run twice (held bitwise equal) against the
+                twin's VJP in fp64, and timed per shape against its bound,
+                the twin's VJP and aten's ``native_group_norm_backward``;
 9. roi          every K2/K3 call of that step replayed through the
                 kernels (twice, held bitwise equal), their twins and,
                 where torchvision is installed, ``torchvision.ops.
@@ -50,10 +53,7 @@ and strict); and checks every hand-written kernel on them:
                 kernel node in a CUDA graph) and, modelled from the plan
                 on the host, the bytes its loads would request beside the
                 unique bytes the bound counts;
-10. small_train one tiny fp32 train step on the GPU (K1 Function, K2, K3)
-                against the same weights, batch and noise on the CPU
-                (twins): metrics and every parameter's gradient;
-11. damsm       ``cli.pretrain_damsm`` (what ``python -m
+10. damsm       ``cli.pretrain_damsm`` (what ``python -m
                 objgan_tpu_torch.pretrain_damsm`` runs) takes DAMSM_STEPS
                 steps at the full width of ``cfg/damsm_coco.yml`` (batch
                 48, 256 px, lite backbone, fp32) on the manifest feed of
@@ -70,20 +70,17 @@ and strict); and checks every hand-written kernel on them:
                 ``TRAIN.NET_E`` at that checkpoint, on the manifest feed,
                 for 2 steps: its encoders equal the checkpoint's, K2 and K3
                 launched 3 times per step;
-12. damsm_k1    every K1 call of one more DAMSM step (the fp32 image
+11. damsm_k1    every K1 call of one more DAMSM step (the fp32 image
                 encoder at B = 48), checked as in phase 3;
-13. small_damsm one tiny fp32 DAMSM step on the GPU (K1 under autograd)
-                against the same weights, batch and dropout mask on the
-                CPU (twins): metrics and every gradient;
-14. box         ``cli.train_box`` (what ``python -m
+12. box         ``cli.train_box`` (what ``python -m
                 objgan_tpu_torch.box_train`` runs) takes BOX_STEPS steps
                 at the width of ``Config()`` (RNN 1024, batch 16, 20 GMM
                 components in corr mode) on the manifest's layouts:
                 finite losses, every parameter moved, no kernel launched,
-                the checkpoint round trip as in phase 11, one step under
+                the checkpoint round trip as in phase 10, one step under
                 torch.profiler; ``cli.sample_box`` (temperature, and beam
                 search at K = 3) and ``cli.eval_box`` on 2 batches;
-15. shape       ``cli.train_shape`` (``python -m
+13. shape       ``cli.train_shape`` (``python -m
                 objgan_tpu_torch.shape_main``) takes SHAPE_STEPS steps at
                 the width of ``cfg/shape_coco.yml`` (160 objects, 64 px,
                 fp32) on the manifest's layouts and masks: finite losses,
@@ -91,18 +88,16 @@ and strict); and checks every hand-written kernel on them:
                 round trip, the device step on a resident batch (and once
                 under torch.profiler) and the host feed apart;
                 ``cli.eval_shape`` on 2 batches;
-16. shape_k1    every K1 call of one more Stage-B step (B = 160, fp32),
+14. shape_k1    every K1 call of one more Stage-B step (B = 160, fp32),
                 checked as in phase 3;
-17. small_shape one tiny fp32 Stage-B step on the GPU (K1 under autograd)
-                against the same weights, batch and noise on the CPU;
-18. compose     the Stage-C (phase 6), Stage-A and Stage-B checkpoints,
+15. compose     the Stage-C (phase 6), Stage-A and Stage-B checkpoints,
                 all under one OUTPUT_DIR as ``coco_objgan``, served by
                 ``run_serve`` at ``cfg/eval_coco.yml`` with ``output_dir``:
                 every stage restored, none untrained, and the first
                 batch's layout, masks and images equal to those of
                 ``cli.sample_box``, the restored Stage-B sampler and the
                 restored Stage-C sampler for the same noise;
-19. eval        ``cli.evaluate`` (what ``python -m objgan_tpu_torch.eval``
+16. eval        ``cli.evaluate`` (what ``python -m objgan_tpu_torch.eval``
                 runs) at ``cfg/eval_coco.yml`` on phase 6's Stage-C
                 checkpoint, EVAL_BATCHES held-out batches of the manifest,
                 ``--real_stats all`` and the frozen probe
@@ -115,25 +110,25 @@ and strict); and checks every hand-written kernel on them:
                 caches read and every metric equal to the bit; per batch,
                 synchronised, the host feed, the sampling and the rest
                 (extraction) apart, the full-manifest pass, peak memory;
-20. eval_k1     every K1 call of one eval batch, checked as in phase 3;
-21. strict      a random Inception-v3 written as a torchvision state dict
+17. eval_k1     every K1 call of one eval batch, checked as in phase 3;
+18. strict      a random Inception-v3 written as a torchvision state dict
                 and read back through ``inception_pth``: the converter
                 against the module; ``cli.evaluate --strict`` on 2 batches,
                 finite metrics; Inception's pool activations and
                 probabilities at 299 px on 32 images, timed;
-22. damsm_inception  ``cli.pretrain_damsm`` with ``TEXT.CNN_BACKBONE:
+19. damsm_inception  ``cli.pretrain_damsm`` with ``TEXT.CNN_BACKBONE:
                 inception`` at ``cfg/damsm_coco.yml`` width for 2 steps:
                 the backbone bitwise unmoved, the projections and the text
                 encoder moved, no Adam state for the backbone, the
                 checkpoint round trip;
-23. shape_vgg   ``cli.train_shape`` with ``SHAPE.PERCEPTUAL: vgg`` at
+20. shape_vgg   ``cli.train_shape`` with ``SHAPE.PERCEPTUAL: vgg`` at
                 ``cfg/shape_coco.yml`` width for 2 steps: finite losses
                 with the perceptual term, VGG unmoved and without Adam
                 state, K1 11 times a step; the device step against phase
-                15's;
-24. small_eval  the tiny fp32 eval on the GPU (K1) against the CPU (twins),
+                13's;
+21. small_eval  the tiny fp32 eval on the GPU (K1) against the CPU (twins),
                 same checkpoint, batches and noise: every metric.
-25. feed        the host feeds of ``--wire`` and ``--grain`` on the
+22. feed        the host feeds of ``--wire`` and ``--grain`` on the
                 manifest: the RAM budget the wire cache's policy finds;
                 ``cli.pretrain_damsm`` with ``--wire`` at ``damsm_coco``
                 width (3 steps, a snapshot drawn on ``image_u8``),
@@ -150,7 +145,7 @@ and strict); and checks every hand-written kernel on them:
                 worker feed's ms per batch at 0 and WORKERS workers,
                 classic and wire, at batch 48; ``cli.evaluate`` with
                 ``--grain`` on that Stage-C checkpoint, 2 batches.
-26. ddp         data parallelism: ``python -m torch.distributed.run
+23. ddp         data parallelism: ``python -m torch.distributed.run
                 --nproc_per_node=1 -m objgan_tpu_torch.gan_main`` (NCCL,
                 world size 1) for DDP_STEPS steps at ``coco_objgan``
                 width: finite metrics, rank 0's checkpoint and CSV, K1-K3
@@ -164,7 +159,7 @@ and strict); and checks every hand-written kernel on them:
                 ``coco_objgan`` width (finite, the ranks' parameters
                 bitwise equal, K1-K3 at phase 6's counts), ms per step at
                 world sizes 1 and 2 side by side;
-27. multi_step  ``TRAIN.STEPS_PER_EXECUTION`` = 4: each trainer at full
+24. multi_step  ``TRAIN.STEPS_PER_EXECUTION`` = 4: each trainer at full
                 width (Stage C at ``coco_objgan``, DAMSM at ``damsm_coco``,
                 Stage A at ``Config()``, Stage B at ``shape_coco``) takes
                 4 steps as one CUDA-graph replay, from the state, batches
@@ -179,15 +174,14 @@ and strict); and checks every hand-written kernel on them:
                 with K = 4 to step 10 (two executions and the ragged
                 tail's two steps: the JAX loop's checkpoints, grids and
                 rows), resumed to 14; ``gan_main`` as one NCCL rank under
-                torchrun with K = 4; K > 1 under gloo on the card and a
-                trainer restored after its capture refused;
-28. native      the feed's C++ polygon fill (``native/rasterize.cc``,
+                torchrun with K = 4;
+25. native      the feed's C++ polygon fill (``native/rasterize.cc``,
                 built by g++) against its numpy plain version, bitwise, on
                 every polygon of the manifest, both timed; a Stage-B batch
                 (16 x 10 objects, ``shape_coco``) and an eval batch (16,
                 ``eval_coco``) fed with each fill: bitwise equal, host ms
                 per batch of each;
-29. lineage     random lineage ``.pth`` state dicts at full width through
+26. lineage     random lineage ``.pth`` state dicts at full width through
                 the port's tools: ``convert_damsm`` of a text_encoder.pth
                 and an inception image_encoder.pth (``damsm_coco``) into
                 ``cli.train_gan`` at ``coco_objgan`` width with
@@ -197,13 +191,13 @@ and strict); and checks every hand-written kernel on them:
                 ``cli.sample_gan`` with ``TRAIN.NET_G`` (one batch);
                 ``export_damsm`` and ``convert_damsm`` of the export, the
                 same encoders bitwise;
-30. breakdown   ``utils/breakdown.py`` with ``analyze=True``: Stage-C
+27. breakdown   ``utils/breakdown.py`` with ``analyze=True``: Stage-C
                 sampling at ``eval_coco`` width on a manifest batch and the
                 train step at ``coco_objgan`` width, every key printed;
                 each stage once first: finite, K1 once per GroupNorm call
                 (and so in exactly the stages that normalise), K2 3 times
                 in each train part, K3 in both gradients;
-31. orbax       steps the JAX package wrote with Orbax
+28. orbax       steps the JAX package wrote with Orbax
                 (``tests/data/orbax_fixtures.tar.xz``, no JAX here): the
                 full-width ``GanTrainState`` at ``cfg/coco_objgan.yml``
                 decoded by the port's reader (libzstd's version, ms, MB)
@@ -219,22 +213,20 @@ and strict); and checks every hand-written kernel on them:
                 card and on the CPU, against each other and JAX's step
                 (``tests/data/orbax_goldens.npz``); ``run_serve`` composed
                 from the tiny box, shape and gan steps, 2 requests;
-32. hw_check    ``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
-                subprocess: exit 0, a PASS line for each of K2 + K3 (fp32,
-                bf16) and K1 (fp32, bf16, each with and without GLU); again
-                under ``compute-sanitizer --tool memcheck`` at ``--c 64
-                --o 4``, every tensor its own allocation, 0 errors, where
-                the toolkit has the sanitizer (else the phase says so);
-33. guard_pages ``python -m objgan_tpu_torch.tools.guard_pages`` in a
-                subprocess: K1 (resident and streaming plans, the ring,
-                the cluster sizes, the scalar paths), K2 and K3 with every
-                input ending at an unmapped page, each against its twin;
-                and its control, one float read past a guarded tensor,
-                which must die of an illegal address;
-34. processes   no process that the smoke started is left: the worker
+29. hw_check    ``tools/kernel_hw_check.checked()``: K2 + K3 (fp32, bf16)
+                and K1 (fp32, bf16, each with and without GLU) through
+                their autograd Functions against their plain versions,
+                each check launching its kernels once;
+30. guard_pages ``tools/guard_pages.checked()``: K1 (resident and
+                streaming plans, the ring, the cluster sizes, the scalar
+                paths), K1 backward, K2 and K3 with every input ending at
+                an unmapped page, each against its twin and launched once,
+                in a subprocess; and its control, one float read past a
+                guarded tensor, which must die of an illegal address;
+31. processes   no process that the smoke started is left: the worker
                 feeds' fork server stopped with the last feed, and the
                 resource tracker it started stops here (the ranks and
-                torchrun's agent of phase 26 included).
+                torchrun's agent of phase 23 included).
 
 Times are device time from CUDA events around a CUDA-graph replay of one
 call, median of 20, unless a line says otherwise. K1, K2, K3 and
@@ -280,17 +272,6 @@ K1B_REPLACES = "objgan_tpu/ops/groupnorm.py:332"
 ROI_SOURCE = "objgan_tpu_torch/csrc/roi_align.cu"
 K2_REPLACES = "objgan_tpu/ops/roi_align.py:107"
 K3_REPLACES = "objgan_tpu/ops/roi_align.py:132"
-FP32_ATOL = 1e-4
-BF16_ATOL, BF16_RTOL = 3e-2, 2e-2
-# K1 backward's dscale and dbias, fp32 sums over B * N rows: within this
-# share of their largest magnitude (at least 1) of the twin's VJP in fp64
-# (measured on an H100: at most 2.8e-7 on a train step's calls); under GLU
-# in bf16, where a, g and the sigmoid are rounded to bf16 as the forward
-# rounds them, within K1's bf16 tolerances so scaled (measured 8.3e-3)
-PARAM_RTOL = 1e-4
-# K2/K3 in bf16: fp32 sums in another order, one rounding to bf16 (a step
-# of at most 2^-8 relative) on both sides
-ROI_BF16_ATOL, ROI_BF16_RTOL = 1e-2, 1e-2
 TRAIN_STEPS = 6
 ORBAX_STEPS = 2  # Stage-C steps resumed from the JAX run's step
 ORBAX_ARCHIVE = "tests/data/orbax_fixtures.tar.xz"
@@ -533,15 +514,15 @@ def _check_k1(phase, records, per):
     error, totals over the calls: the work of one ``per``)."""
     import torch
 
-    from objgan_tpu_torch.ops import groupnorm
+    from objgan_tpu_torch.ops import groupnorm, twin_rules
     from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
                                                 group_norm_reference,
                                                 plan_for)
 
     log(phase, f"recorded {len(records)} K1 calls of one {per}; tolerance "
-        f"fp32 atol {FP32_ATOL} (against the twin in fp64), bf16 atol "
-        f"{BF16_ATOL} rtol {BF16_RTOL}; each call run twice and held bitwise "
-        f"equal")
+        f"fp32 atol {twin_rules.FP32_ATOL} (against the twin in fp64), bf16 "
+        f"atol {twin_rules.K1_BF16_ATOL} rtol {twin_rules.K1_BF16_RTOL}; "
+        f"each call run twice and held bitwise equal")
     max_err = 0.0
     shapes = {}
     for mod, x in records:
@@ -551,26 +532,15 @@ def _check_k1(phase, records, per):
         got = group_norm_cuda(x3, *args)
         check(bool(torch.equal(got, group_norm_cuda(x3, *args))),
               f"K1 is not bit-reproducible at {tuple(x3.shape)}")
-        got = got.float()
-        want = group_norm_reference(x3, *args).float()
-        err = (got - want).abs()
-        e = twin_e = float(err.max())
         key = (tuple(x3.shape), str(x3.dtype).replace("torch.", ""),
                mod.num_groups, mod.use_glu)
-        if x3.dtype == torch.float32:
-            # fp32 calls against the twin evaluated in fp64: at the DAMSM
-            # step's (48, 16384, 32) (|mean| / std ~ 6) the fp32 twin's own
-            # statistics are off by a sizeable share of the tolerance
-            exact = group_norm_reference(x3.double(), *args)
-            e = float((got.double() - exact).abs().max())
-            check(e <= FP32_ATOL, f"K1 vs twin in fp64 {key}: max err "
-                  f"{e:.3g}")
-            ulps = float("nan")
-        else:
-            bad = err > BF16_ATOL + BF16_RTOL * want.abs()
-            check(not bool(bad.any()), f"K1 vs twin {key}: "
-                  f"{int(bad.sum())} elements beyond tolerance")
-            ulps = float((err / bf16_ulp(want)).max())
+        want = twin_rules.k1_twin(x3, *args)
+        e, ok = twin_rules.k1(got, want, x3.dtype)
+        check(ok, f"K1 vs twin {key}: max err {e:.3g}")
+        err = (got.float() - group_norm_reference(x3, *args).float()).abs()
+        twin_e = float(err.max())
+        ulps = (float((err / bf16_ulp(want.float())).max())
+                if x3.dtype == torch.bfloat16 else float("nan"))
         max_err = max(max_err, e)
         entry = shapes.setdefault(key, {"count": 0, "err": 0.0, "ulps": 0.0,
                                         "twin_err": 0.0, "x": x3,
@@ -658,8 +628,8 @@ def _check_k1(phase, records, per):
 def _check_k1_bwd(phase, calls, per, timed=False):
     """Replays each recorded K1 backward call (``_record_train_step``'s:
     the arguments and the needs flags) through the kernel twice, held
-    bitwise equal, and against the twin's VJP in fp64 on the card: dx at
-    K1's tolerances, dscale and dbias as PARAM_RTOL says. With ``timed``,
+    bitwise equal, and against the twin's VJP in fp64 on the card
+    (``twin_rules.k1_grad``). With ``timed``,
     times each distinct call (one and ten per graph, eager), the twin's
     VJP and, without GLU, aten's ``native_group_norm_backward`` on
     channels-first copies (its layout; GLU has no library backward),
@@ -671,14 +641,16 @@ def _check_k1_bwd(phase, calls, per, timed=False):
     under "dx_ulps", over the elements where rtol sets the limit)."""
     import torch
 
+    from objgan_tpu_torch.ops import twin_rules as tr
     from objgan_tpu_torch.ops.groupnorm import (
         bwd_plan_for, group_norm_backward_cuda, group_norm_backward_reference)
 
     log(phase, f"recorded {len(calls)} K1 backward calls of one {per}; "
-        f"against the twin's VJP in fp64: dx fp32 atol {FP32_ATOL}, bf16 "
-        f"atol {BF16_ATOL} rtol {BF16_RTOL}; dscale, dbias {PARAM_RTOL} of "
-        f"their largest magnitude (bf16 GLU: atol {BF16_ATOL} of it, rtol "
-        f"{BF16_RTOL}); each call run twice and held bitwise equal")
+        f"against the twin's VJP in fp64: dx fp32 atol {tr.FP32_ATOL}, bf16 "
+        f"atol {tr.K1_BF16_ATOL} rtol {tr.K1_BF16_RTOL}; dscale, dbias "
+        f"{tr.PARAM_RTOL} of their largest magnitude (bf16 GLU: atol "
+        f"{tr.K1_BF16_ATOL} of it, rtol {tr.K1_BF16_RTOL}); each call run "
+        f"twice and held bitwise equal")
     dx_err, dx_ulps, param_err = 0.0, 0.0, {"plain": 0.0, "bf16_glu": 0.0}
     shapes = {}
     for args, needs in calls:
@@ -699,22 +671,17 @@ def _check_k1_bwd(phase, calls, per, timed=False):
         for name, g, w in zip(("dx", "dscale", "dbias"), got, want):
             if g is None:
                 continue
-            err = (g.double() - w).abs()
-            if name == "dx":
-                limit = (FP32_ATOL if x3.dtype == torch.float32 else
-                         BF16_ATOL + BF16_RTOL * w.abs())
-                errs[name] = float(err.max())
-                big = w.abs() >= BF16_ATOL / BF16_RTOL
-                if x3.dtype == torch.bfloat16 and bool(big.any()):
+            errs[name], ok = tr.k1_grad(name, g, w, x3.dtype, glu)
+            check(ok, f"K1 backward vs twin in fp64 {key}: {name} max err "
+                  f"{errs[name]:.3g}"
+                  f"{'' if name == 'dx' else ' over its magnitude'}")
+            if name == "dx" and x3.dtype == torch.bfloat16:
+                # in bf16 ulps, over the elements where rtol sets the limit
+                big = w.abs() >= tr.K1_BF16_ATOL / tr.K1_BF16_RTOL
+                if bool(big.any()):
                     dx_ulps = max(dx_ulps, float(
-                        (err[big] / bf16_ulp(w[big])).max()))
-            else:
-                span = max(1.0, float(w.abs().max()))
-                limit = (BF16_ATOL * span + BF16_RTOL * w.abs() if bf16_glu
-                         else PARAM_RTOL * span)
-                errs[name] = float(err.max()) / span
-            check(not bool((err > limit).any()), f"K1 backward vs twin in "
-                  f"fp64 {key}: {name} max err {float(err.max()):.3g}")
+                        ((g.double() - w).abs()[big]
+                         / bf16_ulp(w[big])).max()))
         dx_err = max(dx_err, errs.get("dx", 0.0))
         which = "bf16_glu" if bf16_glu else "plain"
         param_err[which] = max([param_err[which]] + [
@@ -1174,11 +1141,19 @@ def _record_train_step(cfg, trainer, batch=None):
     return gn, fwd, bwd, batch["obj_valid"] == 0, gn_bwd
 
 
+def _unit_rms(g):
+    """A train step's K3 cotangent (~1e-4, far below the bf16 atol) scaled
+    to unit RMS, so that the tolerance is small against what is
+    compared."""
+    return (g.float() / g.float().square().mean().sqrt()).to(g.dtype)
+
+
 def phase_roi(fwd, bwd, pad):
     """Every K2/K3 call of one train step against the twins, timed."""
     import torch
 
     from objgan_tpu_torch.ops import roi_align as ra
+    from objgan_tpu_torch.ops import twin_rules
 
     check(len(fwd) == 3 and len(bwd) == 3,
           f"one step made {len(fwd)} K2 and {len(bwd)} K3 calls")
@@ -1214,10 +1189,7 @@ def phase_roi(fwd, bwd, pad):
             else:
                 boxes, g, f_shape, r, q = call
                 dt = g.dtype
-                # the step's cotangent is ~1e-4, far below the bf16 atol:
-                # replay it scaled to unit RMS so the tolerance is small
-                # against what is compared
-                g = (g.float() / g.float().square().mean().sqrt()).to(dt)
+                g = _unit_rms(g)
 
                 def kernel(bx, g=g, f_shape=f_shape, r=r, q=q):
                     return ra.roi_align_backward_cuda(bx, g, f_shape, r, q)
@@ -1226,16 +1198,9 @@ def phase_roi(fwd, bwd, pad):
                     return ra.roi_align_backward_reference(bx, g, f_shape,
                                                            g.dtype, r, q)
             for bx in (boxes, zeroed(boxes)):
-                got, want = kernel(bx).float(), twin(bx).float()
-                err = (got - want).abs()
-                max_err = max(max_err, float(err.max()))
-                if dt == torch.float32:
-                    check(float(err.max()) <= FP32_ATOL,
-                          f"{name} vs twin: max err {float(err.max()):.3g}")
-                else:
-                    over = err > ROI_BF16_ATOL + ROI_BF16_RTOL * want.abs()
-                    check(not bool(over.any()), f"{name} vs twin: "
-                          f"{int(over.sum())} elements beyond tolerance")
+                e, ok = twin_rules.roi(kernel(bx), twin(bx), dt)
+                max_err = max(max_err, e)
+                check(ok, f"{name} vs twin: max err {e:.3g}")
             if name == "K2":
                 # a padded (all-zero) box samples the top-left pixel only
                 top_left = f[:, 0, 0, :][:, None, None, None, :]
@@ -1316,8 +1281,9 @@ def phase_roi(fwd, bwd, pad):
         if name == "K3":
             log("roi", "no library call computes K3 alone (torchvision's "
                 "backward runs only through autograd)")
-        tol = (f"bf16 atol {ROI_BF16_ATOL} rtol {ROI_BF16_RTOL}"
-               if dt == torch.bfloat16 else f"fp32 atol {FP32_ATOL}")
+        tol = (f"bf16 atol {twin_rules.ROI_BF16_ATOL} rtol "
+               f"{twin_rules.ROI_BF16_RTOL}" if dt == torch.bfloat16 else
+               f"fp32 atol {twin_rules.FP32_ATOL}")
         log("roi", f"{name}: {len(calls)} calls per step agree with the twin "
             f"(recorded boxes and padded boxes zeroed"
             f"{'; g scaled to unit RMS' if name == 'K3' else ''}), are "
@@ -1332,35 +1298,6 @@ def phase_roi(fwd, bwd, pad):
                else f", library {tot['library_ms']:.4f} ms"))
         res[name] = dict(tot, max_abs_err=max_err, bound_by=bound_by)
     return res
-
-
-def _small_step(phase, stage, what, counts):
-    """A tiny fp32 ``grads`` call of ``stage`` on the GPU (kernels) against
-    the CPU (twins), through ``train/card_check.py``; ``counts()`` reads the
-    launch counts of the kernels it must run. Returns their rise."""
-    from objgan_tpu_torch.train import card_check
-
-    before = counts()
-    r = card_check.tiny_step_on_card(stage, "cuda")
-    rose = [a - b for a, b in zip(counts(), before)]
-    check(r["metric_err"] <= card_check.METRIC_RTOL,
-          f"metrics differ by {r['metric_err']:.3g} relative")
-    check(r["grad_err"] <= card_check.GRAD_RTOL,
-          f"gradient of {r['worst']} differs by {r['grad_err']:.3g}")
-    log(phase, f"tiny fp32 {what}, GPU ({rose} launches) vs CPU (twins), "
-        f"same weights, batch and noise: {r['metrics']} metrics within "
-        f"{r['metric_err']:.3g} relative (rtol {card_check.METRIC_RTOL}); "
-        f"{r['grads']} parameter gradients within {r['grad_err']:.3g} "
-        f"relative norm (worst {r['worst']}; limit {card_check.GRAD_RTOL})")
-    return rose
-
-
-def phase_small_train():
-    """A tiny fp32 train step, GPU (kernels) against CPU (twins)."""
-    rose = _small_step("small_train", "gan",
-                       "train step (K1, K2, K3, K1 backward)", _counts)
-    check(all(n > 0 for n in rose), f"K1/K2/K3/K1 backward launches on the "
-          f"GPU: {rose}")
 
 
 def _differing(a, b):
@@ -1581,19 +1518,6 @@ def phase_damsm_k1(trainer, batch, keep):
     check(len(records) == 8, f"one DAMSM step made {len(records)} K1 calls")
     with torch.no_grad():
         return _check_k1("damsm_k1", records, "DAMSM step")
-
-
-def _k1_count():
-    from objgan_tpu_torch.ops import groupnorm
-
-    return [groupnorm.launches]
-
-
-def phase_small_damsm():
-    """A tiny fp32 DAMSM step, GPU (K1 under autograd) against CPU
-    (twins): metrics and every gradient."""
-    rose = _small_step("small_damsm", "damsm", "DAMSM step (K1)", _k1_count)
-    check(rose == [8], f"K1 launches on the GPU: {rose}")
 
 
 def _run_stage(phase, run, cfg, feed, steps, module_counts=()):
@@ -1930,14 +1854,6 @@ def phase_shape_k1(trainer, batch, z):
           f"calls")
     with torch.no_grad():
         return _check_k1("shape_k1", records, "Stage-B step")
-
-
-def phase_small_shape():
-    """A tiny fp32 Stage-B step, GPU (K1 under autograd) against CPU
-    (twins): metrics and every gradient."""
-    rose = _small_step("small_shape", "shape", "Stage-B step (K1)",
-                       _k1_count)
-    check(rose == [11], f"K1 launches on the GPU: {rose}")
 
 
 def phase_compose(out_dir, vocab):
@@ -2581,48 +2497,36 @@ def _put_ms(batch, n=5):
 
 
 def _hold_against_twins(phase, gn, fwd, bwd, gn_bwd):
-    """Every recorded K1, K2, K3 and K1 backward call against its twin,
-    with the tolerances of phases ``kernels`` and ``roi`` (K3's cotangent
-    scaled to unit RMS as there) and ``_check_k1_bwd``'s. Returns the max
-    error per kernel (K1 backward's: dx's)."""
-    import torch
-
+    """Every recorded K1, K2, K3 and K1 backward call against its twin by
+    ``ops/twin_rules.py`` (K3's cotangent scaled to unit RMS as in phase
+    ``roi``). Returns the max error per kernel (K1 backward's: dx's)."""
     from objgan_tpu_torch.ops import roi_align as ra
-    from objgan_tpu_torch.ops.groupnorm import (group_norm_cuda,
-                                                group_norm_reference)
+    from objgan_tpu_torch.ops import twin_rules
+    from objgan_tpu_torch.ops.groupnorm import group_norm_cuda
 
     errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
 
-    @torch.no_grad()
-    def hold(name, got, want, dt):
-        err = (got.float() - want.float()).abs()
-        if dt == torch.float32:
-            check(float(err.max()) <= FP32_ATOL,
-                  f"{phase}: {name} vs twin, max err {float(err.max()):.3g}")
-        else:
-            atol, rtol = ((BF16_ATOL, BF16_RTOL) if name == "K1" else
-                          (ROI_BF16_ATOL, ROI_BF16_RTOL))
-            over = err > atol + rtol * want.float().abs()
-            check(not bool(over.any()), f"{phase}: {name} vs twin, "
-                  f"{int(over.sum())} elements beyond tolerance")
-        errs[name] = max(errs[name], float(err.max()))
+    def hold(name, close):
+        e, ok = close
+        check(ok, f"{phase}: {name} vs twin, max err {e:.3g}")
+        errs[name] = max(errs[name], e)
 
     for mod, x in gn:
         x3 = x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
         args = (mod.weight.detach(), mod.bias.detach(), mod.num_groups,
                 mod.eps, mod.use_glu)
-        # fp32 against the twin evaluated in fp64, as phase kernels does
-        ref = x3.double() if x3.dtype == torch.float32 else x3
-        hold("K1", group_norm_cuda(x3, *args),
-             group_norm_reference(ref, *args), x3.dtype)
+        hold("K1", twin_rules.k1(group_norm_cuda(x3, *args),
+                                 twin_rules.k1_twin(x3, *args), x3.dtype))
     for f, boxes, r, q in fwd:
-        hold("K2", ra.roi_align_cuda(f, boxes, r, q),
-             ra.roi_align_reference(f, boxes, r, q), f.dtype)
+        hold("K2", twin_rules.roi(ra.roi_align_cuda(f, boxes, r, q),
+                                  ra.roi_align_reference(f, boxes, r, q),
+                                  f.dtype))
     for boxes, g, f_shape, r, q in bwd:
-        g = (g.float() / g.float().square().mean().sqrt()).to(g.dtype)
-        hold("K3", ra.roi_align_backward_cuda(boxes, g, f_shape, r, q),
-             ra.roi_align_backward_reference(boxes, g, f_shape, g.dtype, r,
-                                             q), g.dtype)
+        g = _unit_rms(g)
+        hold("K3", twin_rules.roi(
+            ra.roi_align_backward_cuda(boxes, g, f_shape, r, q),
+            ra.roi_align_backward_reference(boxes, g, f_shape, g.dtype, r, q),
+            g.dtype))
     errs["K1 backward"] = _check_k1_bwd(phase, gn_bwd, "train step")[0]
     return errs
 
@@ -3067,8 +2971,6 @@ def phase_ddp(train):
 MULTI_K = 4  # TRAIN.STEPS_PER_EXECUTION in phase multi_step
 MULTI_STAGES = (("gan", "coco_objgan.yml"), ("damsm", "damsm_coco.yml"),
                 ("box", None), ("shape", "shape_coco.yml"))
-KERNEL_NAMES = {"K1": "gn_fused_kernel", "K1 backward": "gn_bwd_kernel",
-                "K2": "roi_fwd_kernel", "K3": "roi_bwd_kernel"}
 
 
 def _sync_ms(fn, reps):
@@ -3093,6 +2995,7 @@ def _graph_against_eager(stage, cfg):
     must equal them to the bit."""
     import torch
 
+    from objgan_tpu_torch.ops.twin_rules import KERNEL_NAMES
     from objgan_tpu_torch.train import card_check
     from objgan_tpu_torch.train.common import index_stack
     from objgan_tpu_torch.utils.profiling import (device_profile,
@@ -3160,40 +3063,18 @@ def _graph_against_eager(stage, cfg):
             "default": card_check.agreement(r)}
 
 
-_AGREEMENT = """
-import json, os, sys
-import torch
-sys.path.insert(0, sys.argv[1])
-from objgan_tpu_torch.core.config import Config, cfg_from_file
-from objgan_tpu_torch.core.precision import true_fp32
-from objgan_tpu_torch.train import card_check
-true_fp32()
-torch.use_deterministic_algorithms(True)
-out = {}
-for stage, name in json.loads(sys.argv[2]):
-    cfg = (cfg_from_file(os.path.join(sys.argv[1], "cfg", name)) if name
-           else Config())
-    out[stage] = card_check.agreement(card_check.graph_against_eager(
-        stage, cfg, int(sys.argv[3])))
-    torch.cuda.empty_cache()
-print(json.dumps(out))
-"""
-
-
-def _deterministic_agreement():
-    """Each trainer's replay against eager steps in a process under
-    ``torch.use_deterministic_algorithms`` (cuBLAS's workspace fixed by
-    ``CUBLAS_WORKSPACE_CONFIG`` before its first use): the eager steps are
+def _deterministic_agreement(cfgs):
+    """Each trainer's replay against eager steps at its full-width config
+    in a process under ``torch.use_deterministic_algorithms``
+    (``card_check.deterministic_agreement``): the eager steps are
     reproducible there, and the replay must equal them to the bit."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    from objgan_tpu_torch.train import card_check
+
     t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-c", _AGREEMENT, ROOT, json.dumps(MULTI_STAGES),
-         str(MULTI_K)], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=600)
-    check(proc.returncode == 0, f"deterministic agreement failed (rc "
-          f"{proc.returncode}):\n{proc.stderr[-3000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    try:
+        res = card_check.deterministic_agreement(cfgs, MULTI_K)
+    except RuntimeError as e:
+        check(False, str(e))
     for stage, r in res.items():
         e, spread, k1e = r["eager_err"], r["spread"], r["k1_err"]
         check(spread["bitwise"], f"{stage}: eager steps not reproducible "
@@ -3210,44 +3091,6 @@ def _deterministic_agreement():
     log("multi_step", f"deterministic agreement in a subprocess: "
         f"{time.monotonic() - t0:.1f} s with start-up")
     return res
-
-
-def _k_step_refusals():
-    """K > 1 on the card under a gloo group raises; a trainer whose
-    tensors were replaced after the capture (a restore) raises."""
-    import socket
-
-    import torch.distributed as dist
-
-    from objgan_tpu_torch.core.config import tiny_test_config
-    from objgan_tpu_torch.train import card_check
-
-    cfg = tiny_test_config().merged({"DTYPE": "float32"})
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
-    try:
-        trainer = card_check.fresh("box", cfg, "cuda")
-        inputs = card_check.stacked_inputs("box", cfg, trainer, 0, MULTI_K,
-                                           "cuda")
-        try:
-            trainer.multi_train_step(*inputs)
-            check(False, "K > 1 ran on the card under a gloo group")
-        except RuntimeError as e:
-            check("gloo" in str(e), f"gloo refusal says {e}")
-            gloo_msg = str(e)
-    finally:
-        dist.destroy_process_group()
-    r = card_check.graph_against_eager("box", cfg, MULTI_K)
-    r["graph"].load_state_dict(r["eager"].state_dict())
-    try:
-        r["graph"].multi_train_step(*r["inputs"])
-        check(False, "a restored trainer replayed its old graph")
-    except RuntimeError as e:
-        check("replaced after" in str(e), f"stale-graph refusal says {e}")
-    return gloo_msg
 
 
 def _gan_main_k(yml, max_steps):
@@ -3276,18 +3119,17 @@ def phase_multi_step(per_step):
     (b) ``gan_main`` on the manifest with K =
     MULTI_K to step 10 (two executions, the ragged tail's two steps), the
     JAX loop's checkpoints and rows, then resumed to 14; (c) ``gan_main``
-    as one NCCL rank under torchrun with K = MULTI_K; (d) the refusals:
-    K > 1 under gloo on the card, a trainer restored after its capture."""
+    as one NCCL rank under torchrun with K = MULTI_K."""
     import torch
     import yaml
 
     from objgan_tpu_torch.core.config import Config, cfg_from_file
 
-    agree = _deterministic_agreement()
+    cfgs = {stage: (cfg_from_file(os.path.join(ROOT, "cfg", name)) if name
+                    else Config()) for stage, name in MULTI_STAGES}
+    agree = _deterministic_agreement(cfgs)
     res = {}
-    for stage, name in MULTI_STAGES:
-        cfg = (cfg_from_file(os.path.join(ROOT, "cfg", name)) if name
-               else Config())
+    for stage, cfg in cfgs.items():
         res[stage] = _graph_against_eager(stage, cfg)
         torch.cuda.empty_cache()
     want = {k: MULTI_K * v for k, v in per_step.items()}
@@ -3375,9 +3217,6 @@ def phase_multi_step(per_step):
         f"in {wall3:.1f} s with start-up: rows {ddp_rows}, launches "
         f"counted {ddp_launched}")
     shutil.rmtree(tmp, ignore_errors=True)
-    gloo_msg = _k_step_refusals()
-    log("multi_step", f"(d) refused: gloo on the card ({gloo_msg[:80]}...), "
-        f"and a trainer restored after its capture")
     torch.cuda.empty_cache()
     return {"stages": res, "agreement": agree, "launches": launched,
             "ddp": ddp_launched}
@@ -4082,112 +3921,35 @@ def phase_orbax(vocab):
             "read_ms": read_ms, "mb": mb, "restore_ms": restore_ms}
 
 
-def phase_guard_pages():
-    """``python -m objgan_tpu_torch.tools.guard_pages`` in a subprocess:
-    K1 (both plans), K2 and K3 with every input ending at an unmapped page,
-    each against its twin; and its control, a plain read one element past
-    a guarded tensor, which must fault."""
-    import re
-
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    secs = time.monotonic() - t0
-    lines = proc.stdout.splitlines()
-    checks = [ln for ln in lines if ln.startswith(("PASS", "FAIL"))]
-    for ln in checks:
-        log("guard_pages", ln)
-    check(proc.returncode == 0 and lines and lines[-1].endswith("PASS"),
-          f"guard_pages exited {proc.returncode} (last launched: "
-          f"{[ln for ln in lines if ln.startswith('run ')][-1:]}):\n"
-          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    regimes = {ln.split(": ", 1)[1].split(" cluster")[0] for ln in checks
-               if ln.startswith("PASS K1")}
-    check(regimes == {"resident", "streaming"}, f"K1 plans run: {regimes}")
-    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+), K1 backward "
-                      r"(\d+)", proc.stdout)
-    check(found is not None, "guard_pages printed no launch counts")
-    launches = dict(zip(COUNTED, map(int, found.groups())))
-    t0 = time.monotonic()
-    control = subprocess.run(
-        [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages",
-         "--control"], cwd=ROOT, capture_output=True, text=True, timeout=300)
-    faulted = (control.returncode != 0
-               and "illegal memory access" in control.stderr)
-    check(faulted, f"the control read past a guarded tensor without a fault "
-          f"(exit {control.returncode}):\n{control.stdout[-500:]}\n"
-          f"{control.stderr[-1000:]}")
-    log("guard_pages", f"{lines[-1]} in {secs:.1f} s (K1 plans "
-        f"{sorted(regimes)}; launches {launches}); control: a plain read one float past a "
-        f"guarded tensor faults (exit {control.returncode}, illegal memory "
-        f"access, {time.monotonic() - t0:.1f} s)")
-    return {"launches": launches}
-
-
 def phase_hw_check():
-    """``python -m objgan_tpu_torch.tools.kernel_hw_check`` in a
-    subprocess: exit 0, a PASS line per check; again under
-    ``compute-sanitizer --tool memcheck`` at a narrow shape, with every
-    tensor its own allocation, where the toolkit has the sanitizer and it
-    runs a plain torch kernel (a control run first)."""
-    import re
+    """``kernel_hw_check.checked()``: each check passes and launches its
+    kernels once."""
+    from objgan_tpu_torch.tools import kernel_hw_check
 
     t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-m", "objgan_tpu_torch.tools.kernel_hw_check"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    secs = time.monotonic() - t0
-    lines = proc.stdout.splitlines()
-    for ln in lines:
-        log("hw_check", ln)
-    passed = [ln for ln in lines if ln.startswith("PASS")]
-    check(proc.returncode == 0 and len(passed) == 6,
-          f"kernel_hw_check exited {proc.returncode} with {len(passed)} PASS "
-          f"lines:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+)", proc.stdout)
-    check(found is not None, "kernel_hw_check printed no launch counts")
-    launches = dict(zip(("K1", "K2", "K3"), map(int, found.groups())))
-    log("hw_check", f"exit 0 in {secs:.1f} s; launches {launches}")
-    sanitizer = "/usr/local/cuda/bin/compute-sanitizer"
-    if not os.path.exists(sanitizer):
-        log("hw_check", f"{sanitizer} is not on this host: no memcheck run")
-        return {"launches": launches, "memcheck": "absent"}
-    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    try:
+        r = kernel_hw_check.checked([])
+    except RuntimeError as e:
+        check(False, str(e))
+    log("hw_check", f"{r['passed']} checks PASS in "
+        f"{time.monotonic() - t0:.2f} s; launches {r['launches']}")
+    return r
 
-    def memcheck(*argv):
-        t0 = time.monotonic()
-        proc = subprocess.run([sanitizer, "--tool", "memcheck",
-                               "--error-exitcode", "3", sys.executable,
-                               *argv], cwd=ROOT, env=env,
-                              capture_output=True, text=True, timeout=600)
-        text = proc.stdout + proc.stderr
-        summary = [ln for ln in text.splitlines() if "ERROR SUMMARY" in ln]
-        first = [ln for ln in text.splitlines() if ln.startswith(
-            "========= ") and ("Program hit" in ln or "Invalid" in ln
-                               or "Error" in ln)][:2]
-        clean = (proc.returncode == 0 and bool(summary)
-                 and summary[-1].endswith(" 0 errors"))
-        return clean, proc, summary, first, time.monotonic() - t0
 
-    # a control: one plain torch kernel under the sanitizer
-    ok, proc, summary, first, secs = memcheck(
-        "-c", "import torch; x = torch.ones(8, device='cuda'); "
-        "print(float(x.sum()))")
-    if not ok:
-        log("hw_check", f"{sanitizer} is on this host but cannot run a plain "
-            f"torch kernel (exit {proc.returncode} in {secs:.1f} s, "
-            f"{summary}, first report {first}): no memcheck of the kernels")
-        return {"launches": launches, "memcheck": "unusable"}
-    ok, proc, summary, first, secs = memcheck(
-        "-m", "objgan_tpu_torch.tools.kernel_hw_check", "--c", "64", "--o",
-        "4")
-    log("hw_check", f"under compute-sanitizer memcheck (--c 64 --o 4, no "
-        f"caching allocator: every tensor its own allocation): exit "
-        f"{proc.returncode} in {secs:.1f} s; {summary}")
-    check(ok, f"memcheck: exit {proc.returncode}, first reports {first}\n"
-          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return {"launches": launches, "memcheck": summary[-1]}
+def phase_guard_pages():
+    """``guard_pages.checked()``: every kernel on guarded inputs against its
+    twin, launched once per check, and the control, which must fault."""
+    from objgan_tpu_torch.tools import guard_pages
+
+    try:
+        r = guard_pages.checked()
+    except RuntimeError as e:
+        check(False, str(e))
+    log("guard_pages", f"{len(r['checks'])} checks PASS in "
+        f"{r['seconds']:.1f} s (K1 plans {r['regimes']}; launches "
+        f"{r['launches']}); control: a plain read one float past a guarded "
+        f"tensor faults ({r['control_seconds']:.1f} s)")
+    return r
 
 
 def _child_processes():
@@ -4269,19 +4031,16 @@ def main():
     roi = phase_roi(fwd, bwd, pad)
     del fwd, bwd
     torch.cuda.empty_cache()
-    phase_small_train()
     damsm_trainer, batch, keep, (damsm_k1_launches,
                                  damsm_k1b_launches) = phase_damsm()
     k1_damsm_err, k1_damsm = phase_damsm_k1(damsm_trainer, batch, keep)
     del damsm_trainer, batch, keep
     torch.cuda.empty_cache()
-    phase_small_damsm()
     phase_box(out_dir)
     shape_trainer, batch, z, shape = phase_shape(out_dir)
     k1_shape_err, k1_shape = phase_shape_k1(shape_trainer, batch, z)
     del shape_trainer, batch, z
     torch.cuda.empty_cache()
-    phase_small_shape()
     phase_compose(out_dir, vocab)
     work, eval_launches, _ = phase_eval(out_dir)
     k1_eval_err, k1_eval = phase_eval_k1(out_dir, work)

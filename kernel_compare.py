@@ -89,7 +89,7 @@ def record_calls():
     del pipe
     train_cfg = cfg_from_file(os.path.join(ROOT, "cfg", "coco_objgan.yml"))
     trainer = cli.make_trainer(train_cfg, "cuda")
-    train, fwd, bwd, pad = cs._record_train_step(train_cfg, trainer)
+    train, fwd, bwd, pad, _ = cs._record_train_step(train_cfg, trainer)
     del trainer
     torch.cuda.synchronize()
     return ({"served batch": served, "train step": train,

@@ -109,6 +109,28 @@ def _already_trained(out: str, stage: str, max_steps: int) -> bool:
     return False
 
 
+def _start(cfg: Config, stage: str, feed: Optional[Iterator[Dict]],
+           max_steps: int, device, make: Callable[[torch.device], Trainer],
+           with_images: bool = True) -> Optional[tuple]:
+    """The trainer entry points' preamble: join the process group, make the
+    stage's output directory, and return None when its checkpoints already
+    reach ``max_steps``; else build the trainer (``make(device)``), restore
+    its newest checkpoint, feed synthetic batches from the restored step
+    when ``feed`` is None, and return (device, output directory, trainer,
+    checkpoint manager, feed)."""
+    device = _join_group(cfg, device)
+    out = _out_dir(cfg, stage)
+    if _already_trained(out, stage, max_steps):
+        return None
+    trainer = make(device)
+    manager = CheckpointManager(os.path.join(out, "ckpt"))
+    _restore(manager, trainer)
+    if feed is None:
+        feed = synthetic_feed(cfg, device, trainer.step,
+                              with_images=with_images)
+    return device, out, trainer, manager, feed
+
+
 def apply_epoch_schedule(cfg: Config, n_records: int, max_steps: int):
     """The lineage's epoch-denominated knobs in steps once the dataset size
     is known: ``MAX_EPOCH`` epochs when no ``max_steps`` is given, and a
@@ -521,15 +543,11 @@ def train_gan(cfg: Config, feed: Optional[Iterator[Dict]] = None,
                                                   build_super_images,
                                                   save_png)
 
-    device = _join_group(cfg, device)
-    out = _out_dir(cfg, "gan")
-    if _already_trained(out, "gan", max_steps):
+    run = _start(cfg, "gan", feed, max_steps, device,
+                 lambda d: _gan_trainer(cfg, d))
+    if run is None:
         return None
-    trainer = _gan_trainer(cfg, device)
-    manager = CheckpointManager(os.path.join(out, "ckpt"))
-    _restore(manager, trainer)
-    if feed is None:
-        feed = synthetic_feed(cfg, device, trainer.step)
+    device, out, trainer, manager, feed = run
     first = next(feed)
     feed = itertools.chain([first], feed)
     first_dev = to_device(first, device)
@@ -606,15 +624,11 @@ def pretrain_damsm(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     from objgan_tpu_torch.losses.damsm_loss import words_loss
     from objgan_tpu_torch.utils.visualize import build_super_images, save_png
 
-    device = _join_group(cfg, device)
-    out = _out_dir(cfg, "damsm")
-    if _already_trained(out, "damsm", max_steps):
+    run = _start(cfg, "damsm", feed, max_steps, device,
+                 lambda d: fresh_trainer(cfg, DamsmTrainer(cfg), d))
+    if run is None:
         return None
-    trainer = fresh_trainer(cfg, DamsmTrainer(cfg), device)
-    manager = CheckpointManager(os.path.join(out, "ckpt"))
-    _restore(manager, trainer)
-    if feed is None:
-        feed = synthetic_feed(cfg, device, trainer.step)
+    device, out, trainer, manager, feed = run
     feed = _finest_scale_only(feed)
     first = next(feed)
     feed = itertools.chain([first], feed)
@@ -675,6 +689,20 @@ def _restore_for_sampling(cfg: Config, trainer: Trainer, stage: str,
     return restored
 
 
+def _train_layouts(cfg: Config, stage: str, trainer_cls, feed, max_steps: int,
+                   device, log_every: int) -> Optional[Trainer]:
+    """Stage A's or B's training: ``_start``, then the loop."""
+    run = _start(cfg, stage, feed, max_steps, device,
+                 lambda d: fresh_trainer(cfg, trainer_cls(cfg), d),
+                 with_images=False)
+    if run is None:
+        return None
+    device, out, trainer, manager, feed = run
+    _run_loop(cfg, trainer, feed, MetricsWriter(out, stage, log_every),
+              manager, max_steps, device, log_every=log_every)
+    return trainer
+
+
 def train_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
               max_steps: int = 10 ** 9, device="cuda",
               log_every: int = 50) -> Optional[BoxTrainer]:
@@ -683,19 +711,8 @@ def train_box(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     newest checkpoint. With ``BOX.SCHEDULED_SAMPLING_PROB`` > 0 a step's
     flips are drawn from (RNG_SEED, step). Returns the trainer, or None
     when the checkpoints already reach ``max_steps``."""
-    device = _join_group(cfg, device)
-    out = _out_dir(cfg, "box")
-    if _already_trained(out, "box", max_steps):
-        return None
-    trainer = fresh_trainer(cfg, BoxTrainer(cfg), device)
-    manager = CheckpointManager(os.path.join(out, "ckpt"))
-    _restore(manager, trainer)
-    if feed is None:
-        feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
-
-    _run_loop(cfg, trainer, feed, MetricsWriter(out, "box", log_every),
-              manager, max_steps, device, log_every=log_every)
-    return trainer
+    return _train_layouts(cfg, "box", BoxTrainer, feed, max_steps, device,
+                          log_every)
 
 
 def sample_box(cfg: Config, captions, cap_lens,
@@ -770,19 +787,8 @@ def train_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,
     images; synthetic batches when None), resumed from the stage's newest
     checkpoint; a step's noise is drawn from (RNG_SEED, step). Returns the
     trainer, or None when the checkpoints already reach ``max_steps``."""
-    device = _join_group(cfg, device)
-    out = _out_dir(cfg, "shape")
-    if _already_trained(out, "shape", max_steps):
-        return None
-    trainer = fresh_trainer(cfg, ShapeTrainer(cfg), device)
-    manager = CheckpointManager(os.path.join(out, "ckpt"))
-    _restore(manager, trainer)
-    if feed is None:
-        feed = synthetic_feed(cfg, device, trainer.step, with_images=False)
-
-    _run_loop(cfg, trainer, feed, MetricsWriter(out, "shape", log_every),
-              manager, max_steps, device, log_every=log_every)
-    return trainer
+    return _train_layouts(cfg, "shape", ShapeTrainer, feed, max_steps,
+                          device, log_every)
 
 
 def eval_shape(cfg: Config, feed: Optional[Iterator[Dict]] = None,

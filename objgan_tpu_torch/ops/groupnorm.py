@@ -85,8 +85,8 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, num_groups: int, eps: float,
                          use_glu: bool) -> torch.Tensor:
     """Plain PyTorch twin of kernel K1. x is (B, ..., C) channels-last. It
-    computes in fp32 (in fp64 for an fp64 x, which ``chip_smoke.py`` uses
-    as the exact reference for K1's fp32 calls)."""
+    computes in fp32 (in fp64 for an fp64 x, which ``twin_rules.k1_twin``
+    uses as the exact reference for K1's fp32 calls)."""
     shape = x.shape
     c = shape[-1]
     ct = torch.promote_types(x.dtype, torch.float32)

@@ -4,6 +4,9 @@ read past the end of an input faults instead of passing.
     python -m objgan_tpu_torch.tools.guard_pages            # the checks
     python -m objgan_tpu_torch.tools.guard_pages --control  # must fault
 
+``checked()`` runs both, each in a process of its own, and holds them to
+what they must show; ``chip_smoke.py`` and the card test call it.
+
 Compute Sanitizer does not run on the card's host ("Device not
 supported"), and the caching allocator packs tensors, so a kernel that
 reads a little past its input reads mapped memory and passes its tests.
@@ -19,19 +22,17 @@ where that is not 16 bytes, the wrappers take their scalar plans, as they
 would for any such tensor.)
 
 Each check runs one wrapper on guarded inputs and holds the result against
-its plain PyTorch twin (fp32 1e-4; bf16 as ``tests/test_torch_cuda.py``):
-K1 (``group_norm_cuda``) at the streaming and resident plans on both sides
+its plain PyTorch twin by the rules of ``ops/twin_rules.py``: K1
+(``group_norm_cuda``) at the streaming and resident plans on both sides
 of ``ops/groupnorm.py::_plan``'s threshold, the ring, the cluster sizes
 and the scalar path, and K1 backward (``group_norm_backward_cuda``, its
-cotangent guarded too) at the same shapes against the twin's VJP in fp64
-(dscale and dbias, sums over B * N rows, within 1e-4 of their largest
-magnitude; under GLU in bf16 within the bf16 numbers so scaled); K2 and
-K3 (``roi_align_cuda``, ``roi_align_backward_cuda``) at the train step's
-shape, the scalar path and other sampling ratios, and on the boxes of the
-adversarial test. One line per check (its name printed before the
-launch, so a fault names it), then the launches and "guard pages: N
-checks PASS". An illegal address poisons the process's CUDA context: run
-this in a process of its own, as ``chip_smoke.py`` and the card test do.
+cotangent guarded too) at the same shapes against the twin's VJP in fp64;
+K2 and K3 (``roi_align_cuda``, ``roi_align_backward_cuda``) at the train
+step's shape, the scalar path and other sampling ratios, and on
+``twin_rules.adversarial_boxes``. One line per check (its name printed
+before the launch, so a fault names it), then the launches and "guard
+pages: N checks PASS". An illegal address poisons the process's CUDA
+context: run this in a process of its own, as ``checked`` does.
 ``--control`` reads one element past the end of a guarded tensor with a
 plain PyTorch op, which must fault (exit code nonzero): the check's own
 witness that the guard works.
@@ -45,6 +46,8 @@ import sys
 from typing import List
 
 import torch
+
+from objgan_tpu_torch.ops import twin_rules
 
 # CUDA driver enums (cuda.h)
 _ALLOC_PINNED, _LOC_DEVICE, _GRANULARITY_MIN, _PROT_RW = 1, 1, 0, 3
@@ -195,33 +198,22 @@ ROI_SHAPES = [
     (2, 16, 16, 64, 5, 7, torch.bfloat16, 1),
 ]
 
+# (C, dtype) of the features K2 and K3 take on twin_rules.adversarial_boxes
+ADVERSARIAL = [(256, torch.bfloat16), (64, torch.float32),
+               (12, torch.bfloat16)]
+# each check launches its kernel once
+LAUNCHES = {"K1": len(K1_SHAPES), "K2": len(ROI_SHAPES) + len(ADVERSARIAL),
+            "K3": len(ROI_SHAPES) + len(ADVERSARIAL),
+            "K1 backward": len(K1_SHAPES)}
+_TIMEOUT_S = 600
 
-def _close(got, want, dtype, atol_bf16, rtol_bf16):
-    """(largest error, within tolerance): fp32 atol 1e-4, bf16 atol +
-    rtol * |want| element by element."""
-    err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        return float(err.max()), float(err.max()) <= 1e-4
-    return float(err.max()), not bool(
-        (err > atol_bf16 + rtol_bf16 * want.float().abs()).any())
 
-
-def _close_bwd(got, want, dtype, use_glu):
-    """``_close`` for (dx, dscale, dbias) against the twin's VJP in fp64:
-    dx at fp32 atol 1e-4, bf16 atol 3e-2, rtol 2e-2; dscale and dbias
-    within 1e-4 of their largest magnitude (at least 1), or under GLU in
-    bf16 within the bf16 tolerances so scaled (``tests/test_torch_cuda.py
-    ::_bwd_close``)."""
-    bf16 = (3e-2, 2e-2)
-    errs, ok = [], True
-    for i, (g, w) in enumerate(zip(got, want)):
-        span = 1.0 if i == 0 else max(1.0, float(w.abs().max()))
-        atol, rtol = (bf16 if dtype == torch.bfloat16 and (i == 0 or use_glu)
-                      else (1e-4, 0.0))
-        err = (g.double() - w).abs()
-        errs.append(float(err.max()))
-        ok &= not bool((err > atol * span + rtol * w.abs()).any())
-    return max(errs), ok
+def _grads_close(got, want, dtype, use_glu):
+    """(largest error, all within) of (dx, dscale, dbias) by
+    ``twin_rules.k1_grad``."""
+    closes = [twin_rules.k1_grad(name, g, w, dtype, use_glu)
+              for name, g, w in zip(("dx", "dscale", "dbias"), got, want)]
+    return max(e for e, _ in closes), all(ok for _, ok in closes)
 
 
 def _roi_inputs(b, h, w, c, o, dtype, gen, dev):
@@ -232,19 +224,6 @@ def _roi_inputs(b, h, w, c, o, dtype, gen, dev):
     boxes[:, -1] = 0.0  # a padded (all-zero) box in every image
     boxes[0, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])  # the full frame
     return f, boxes
-
-
-def _adversarial_boxes(dev):
-    """tests/test_torch_cuda.py's: off the frame, straddling edges, a
-    padded box, and a band of thin boxes."""
-    first = [[0.9, 0.9, 0.3, 0.3], [0.0, 0.0, 0.0, 0.0],
-             [-0.2, 0.5, 0.4, 0.4], [0.0, 0.0, 1.0, 1.0],
-             [0.97, 0.0, 0.03, 1.0], [0.5, 0.97, 0.5, 0.03],
-             [0.3, 0.3, 1e-4, 1e-4], [1.2, 1.2, 0.5, 0.5],
-             [-0.5, -0.5, 2.0, 2.0], [0.0, 0.0, 0.0, 0.0]]
-    band = [[0.08 * k, 8 / 32 + k / 320, 0.05 + 0.02 * k, 0.2]
-            for k in range(10)]
-    return torch.tensor([first, band], device=dev)
 
 
 def run_checks(device="cuda", out=print) -> List[dict]:
@@ -277,11 +256,9 @@ def run_checks(device="cuda", out=print) -> List[dict]:
             out(f"run  {name}", flush=True)
             got = gnm.group_norm_cuda(gx, gs, gb, groups, 1e-6, glu)
             torch.cuda.synchronize(dev)
-            ref = x.double() if dtype == torch.float32 else x
-            want = gnm.group_norm_reference(ref, scale, bias, groups, 1e-6,
-                                            glu)
+            want = twin_rules.k1_twin(x, scale, bias, groups, 1e-6, glu)
             report(name, f"{plan.regime} cluster {plan.cluster} vec "
-                   f"{plan.vec}", _close(got, want, dtype, 3e-2, 2e-2))
+                   f"{plan.vec}", twin_rules.k1(got, want, dtype))
             gy = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
             ggy = arena.copy(gy)
             bplan = gnm.bwd_plan_for(gx, ggy, glu, (True, True, True))
@@ -294,14 +271,14 @@ def run_checks(device="cuda", out=print) -> List[dict]:
                 gy.double())
             report(f"{name} backward", f"{bplan.regime} cluster "
                    f"{bplan.cluster} vec {bplan.vec}",
-                   _close_bwd(grads, wants, dtype, glu))
+                   _grads_close(grads, wants, dtype, glu))
         cases = [(_roi_inputs(b, h, w, c, o, dtype, gen, dev), r, dtype, q)
                  for b, h, w, c, o, r, dtype, q in ROI_SHAPES]
-        for c, dtype in ((256, torch.bfloat16), (64, torch.float32),
-                         (12, torch.bfloat16)):
-            f = torch.randn(2, 32, 32, c, generator=gen,
+        adversarial = twin_rules.adversarial_boxes(dev)
+        for c, dtype in ADVERSARIAL:
+            f = torch.randn(len(adversarial), 32, 32, c, generator=gen,
                             device=dev).to(dtype)
-            cases.append(((f, _adversarial_boxes(dev)), 7, dtype, 2))
+            cases.append(((f, adversarial), 7, dtype, 2))
         for (f, boxes), r, dtype, q in cases:
             gf, gboxes = arena.copy(f), arena.copy(boxes)
             shape = f"{tuple(f.shape)} O {boxes.shape[1]} R {r} q {q} " \
@@ -311,7 +288,7 @@ def run_checks(device="cuda", out=print) -> List[dict]:
             torch.cuda.synchronize(dev)
             want = ra.roi_align_reference(f, boxes, r, q)
             report(f"K2 {shape}", "forward",
-                   _close(got, want, dtype, 1e-2, 1e-2))
+                   twin_rules.roi(got, want, dtype))
             g = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
             gg = arena.copy(g)
             out(f"run  K3 {shape}", flush=True)
@@ -320,7 +297,7 @@ def run_checks(device="cuda", out=print) -> List[dict]:
             dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype,
                                                   r, q)
             report(f"K3 {shape}", "backward",
-                   _close(dfg, dfw, dtype, 1e-2, 1e-2))
+                   twin_rules.roi(dfg, dfw, dtype))
     finally:
         torch.cuda.synchronize(dev)
         arena.close()
@@ -337,6 +314,53 @@ def control(device="cuda") -> None:
           f"{t.numel()}-float tensor", flush=True)
     print(f"control: sum {float(past.sum())} (no fault: the guard failed)",
           flush=True)
+
+
+def checked() -> dict:
+    """The checks, then the control, each in a process of its own. Raises
+    RuntimeError unless every check passed, K1 ran both its plans, each
+    check launched its kernel once (``LAUNCHES``) and the control died of
+    an illegal address. Returns {"checks": PASS lines, "regimes": K1's
+    plans, "launches", "seconds", "control_seconds"}."""
+    import os
+    import re
+    import subprocess
+    import time
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cmd = [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages"]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=_TIMEOUT_S)
+    secs = time.monotonic() - t0
+    lines = proc.stdout.splitlines()
+    tail = f"\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}"
+    if proc.returncode != 0 or not lines or not lines[-1].endswith("PASS"):
+        ran = [ln for ln in lines if ln.startswith("run ")]
+        raise RuntimeError(f"guard_pages exited {proc.returncode} (last "
+                           f"launched: {ran[-1:]}):{tail}")
+    checks = [ln for ln in lines if ln.startswith("PASS")]
+    regimes = sorted({ln.split(": ", 1)[1].split(" cluster")[0]
+                      for ln in checks if ln.startswith("PASS K1")})
+    found = re.search(r"launches: K1 (\d+), K2 (\d+), K3 (\d+), K1 "
+                      r"backward (\d+)", proc.stdout)
+    launches = found and dict(zip(LAUNCHES, map(int, found.groups())))
+    if regimes != ["resident", "streaming"] or launches != LAUNCHES:
+        raise RuntimeError(f"guard_pages ran K1's plans {regimes} and "
+                           f"launched {launches}, not {LAUNCHES}:{tail}")
+    t0 = time.monotonic()
+    control = subprocess.run(cmd + ["--control"], cwd=root,
+                             capture_output=True, text=True,
+                             timeout=_TIMEOUT_S)
+    if control.returncode == 0 or "illegal memory access" not in \
+            control.stderr:
+        raise RuntimeError(f"the control read past a guarded tensor "
+                           f"without a fault (exit {control.returncode}):\n"
+                           f"{control.stdout[-500:]}\n"
+                           f"{control.stderr[-1000:]}")
+    return {"checks": checks, "regimes": regimes, "launches": launches,
+            "seconds": secs, "control_seconds": time.monotonic() - t0}
 
 
 def main(argv=None) -> int:

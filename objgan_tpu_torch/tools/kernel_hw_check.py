@@ -21,7 +21,9 @@ same card:
 
 One PASS or FAIL line per check, then the kernels' launches; exits 0 when
 every check passes, 1 otherwise, and 2 without a CUDA device (the plain
-versions against themselves would prove nothing).
+versions against themselves would prove nothing). ``checked(argv)`` runs
+the checks in the caller's process and raises unless each passed and
+launched its kernels once; ``chip_smoke.py`` and the card test call it.
 """
 
 from __future__ import annotations
@@ -89,7 +91,15 @@ def check_groupnorm(dtype: torch.dtype, use_glu: bool, device) -> bool:
                    f"{float((diff - tol).max()):.3e}")
 
 
-def main(argv=None) -> int:
+# the launches of one run: each check launches its kernels once
+LAUNCHES = {"K1": 4, "K2": 2, "K3": 2}
+
+
+def run(argv=None) -> dict:
+    """Every check at the shapes ``argv`` (this tool's options) gives, in
+    this process, each printing its PASS or FAIL line: {"passed": n,
+    "failed": n, "launches": the wrappers' launches meanwhile}. Raises
+    RuntimeError without a CUDA device."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--c", type=int, default=256,
                     help="ROI-align channels (4 * DF_DIM on the train step)")
@@ -99,18 +109,20 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
-        print("kernel_hw_check: no CUDA device; the kernels run only on a "
-              "card, and their plain versions against themselves would "
-              "prove nothing", file=sys.stderr)
-        return 2
+        raise RuntimeError("no CUDA device; the kernels run only on a card, "
+                           "and their plain versions against themselves "
+                           "would prove nothing")
     from objgan_tpu_torch.core.precision import true_fp32
     from objgan_tpu_torch.ops import groupnorm, roi_align
+
+    def counts():
+        return (groupnorm.launches, roi_align.launches["fwd"],
+                roi_align.launches["bwd"])
 
     true_fp32()
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(dev)}", flush=True)
-    groupnorm.launches = 0
-    roi_align.launches.update(fwd=0, bwd=0)
+    before = counts()
     gen = torch.Generator(dev).manual_seed(0)
     b, h, w = 4, 16, 16
     feats = torch.randn(b, h, w, args.c, generator=gen, device=dev)
@@ -120,18 +132,40 @@ def main(argv=None) -> int:
     overlap = torch.tensor([0.1, 0.1, 0.8, 0.8], device=dev).expand(
         b, args.o, 4).contiguous()
 
-    ok = check_roi("roi fp32 distinct-boxes", feats, distinct,
-                   args.out_size, args.q, rtol=1e-4, atol=1e-4)
-    ok &= check_roi("roi bf16 overlapping-boxes (fp32 accum)",
-                    feats.bfloat16(), overlap, args.out_size, args.q,
-                    rtol=0.01, atol=0.05)
+    oks = [check_roi("roi fp32 distinct-boxes", feats, distinct,
+                     args.out_size, args.q, rtol=1e-4, atol=1e-4),
+           check_roi("roi bf16 overlapping-boxes (fp32 accum)",
+                     feats.bfloat16(), overlap, args.out_size, args.q,
+                     rtol=0.01, atol=0.05)]
     for use_glu in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
-            ok &= check_groupnorm(dtype, use_glu, dev)
+            oks.append(check_groupnorm(dtype, use_glu, dev))
     torch.cuda.synchronize()
-    print(f"launches: K1 {groupnorm.launches}, K2 {roi_align.launches['fwd']}"
-          f", K3 {roi_align.launches['bwd']}", flush=True)
-    return 0 if ok else 1
+    launches = dict(zip(LAUNCHES, (a - b for a, b in zip(counts(),
+                                                         before))))
+    return {"passed": sum(oks), "failed": len(oks) - sum(oks),
+            "launches": launches}
+
+
+def checked(argv=None) -> dict:
+    """``run``; raises RuntimeError unless every check passed and each
+    launched its kernels once (``LAUNCHES``)."""
+    r = run(argv)
+    if r["failed"] or r["launches"] != LAUNCHES:
+        raise RuntimeError(f"kernel_hw_check: {r['failed']} checks failed; "
+                           f"launches {r['launches']}, not {LAUNCHES}")
+    return r
+
+
+def main(argv=None) -> int:
+    try:
+        r = run(argv)
+    except RuntimeError as e:
+        print(f"kernel_hw_check: {e}", file=sys.stderr)
+        return 2
+    n = r["launches"]
+    print(f"launches: K1 {n['K1']}, K2 {n['K2']}, K3 {n['K3']}", flush=True)
+    return 0 if not r["failed"] else 1
 
 
 if __name__ == "__main__":

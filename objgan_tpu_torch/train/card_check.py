@@ -5,8 +5,8 @@
 batch and noise, takes ``grads`` of a copy on ``device`` (the kernels, on a
 card) and of the original on the CPU (the twins), and reports how far the
 two lie apart: the largest relative metric error and the largest relative
-norm error of a parameter's gradient. ``chip_smoke.py`` and the card tests
-both hold the step to it.
+norm error of a parameter's gradient. The card tests hold each stage's
+step to it.
 
 ``restored(stage, output_dir, goldens, device)`` restores the tiny fp32
 trainer of ``stage`` ("gan", "damsm", "box" or "shape") from the JAX
@@ -21,7 +21,10 @@ call on the card to the CPU's, as ``tiny_step_on_card`` does.
 ``graph_against_eager(stage, cfg, k, device)`` holds K train steps as one
 CUDA-graph replay (``MultiStep``, ``TRAIN.STEPS_PER_EXECUTION``) to K
 eager single steps from the same state, batches and noise, as
-``chip_smoke.py`` (full width) and the card tests (tiny) do.
+``chip_smoke.py`` (full width) and the card tests (tiny) do;
+``deterministic_agreement(cfgs, k)`` does so for each stage in a
+process under ``torch.use_deterministic_algorithms``, where the replay
+must equal the eager steps to the bit.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from objgan_tpu_torch.core.config import tiny_test_config
+from objgan_tpu_torch.core.config import Config, tiny_test_config
 from objgan_tpu_torch.data.synthetic import synthetic_batch
 
 METRIC_RTOL = 1e-4   # each metric, relative
@@ -124,6 +127,9 @@ GOLDEN_PROJECTIONS = 4  # seeded normal vectors each tensor is projected on
 # fixture, where no 1e-5 holds)
 STATE_ATOL = 1e-5
 STATE_RTOL = {"gan": 2e-3, "damsm": 1e-4, "box": 1e-4, "shape": 1e-4}
+# deterministic_agreement's process: the four full-width trainers at K = 4
+# take minutes
+AGREEMENT_TIMEOUT_S = 600.0
 
 
 def batch_digest(batch: Mapping) -> str:
@@ -380,3 +386,53 @@ def agreement(result) -> Dict[str, object]:
         out[key] = {"bitwise": e["bitwise"], "max_abs": e["max_abs"],
                     "rel": e["rel"], "misfits": len(e["misfits"])}
     return out
+
+
+def deterministic_agreement(cfgs: Mapping[str, Config],
+                            k: int) -> Dict[str, Dict[str, object]]:
+    """``agreement`` of ``graph_against_eager`` at K = ``k`` for each stage
+    of ``cfgs`` at its config, in a process of its own under
+    ``torch.use_deterministic_algorithms`` with cuBLAS's workspace fixed
+    (``CUBLAS_WORKSPACE_CONFIG``) before its first use: there two eager
+    runs agree to the bit, and the replay must equal them. Returns
+    {stage: agreement}; raises when the process fails or outlasts
+    AGREEMENT_TIMEOUT_S."""
+    import dataclasses
+    import json
+    import os
+    import subprocess
+    import sys
+
+    raw = {stage: dataclasses.asdict(cfg) for stage, cfg in cfgs.items()}
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=root + (os.pathsep + path if path else ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", "from objgan_tpu_torch.train import "
+         "card_check; card_check._agree_here()", json.dumps(raw), str(k)],
+        cwd=root, env=env, capture_output=True, text=True,
+        timeout=AGREEMENT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"deterministic agreement failed (rc "
+                           f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _agree_here() -> None:
+    """``deterministic_agreement``'s process: reads the configs (as
+    ``dataclasses.asdict`` gave them) and K from its arguments, prints one
+    JSON line."""
+    import json
+    import sys
+
+    from objgan_tpu_torch.core.precision import true_fp32
+
+    true_fp32()
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    for stage, raw in json.loads(sys.argv[1]).items():
+        out[stage] = agreement(graph_against_eager(
+            stage, Config().merged(raw), int(sys.argv[2])))
+    print(json.dumps(out))

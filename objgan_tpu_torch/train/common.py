@@ -19,6 +19,7 @@ reducer.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -392,6 +393,10 @@ class MultiStep:
         start = self.trainer.step
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         self._stream.wait_stream(torch.cuda.current_stream(device))
+        # a CUDA graph left in a reference cycle (a dropped trainer's) and
+        # torn down by the collector while this one is captured spoils the
+        # capture: collect such garbage first
+        gc.collect()
         try:
             # thread_local: the feed's producer thread goes on copying to
             # the card on its own stream meanwhile

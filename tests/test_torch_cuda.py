@@ -1,7 +1,7 @@
 """The port's kernels against their plain PyTorch twins on the card: K1
 (objgan_tpu_torch/csrc/groupnorm.cu) at the shapes the served model, a
-DAMSM step and a Stage-B step give it and under autograd (with a tiny
-Stage-B step on the card against the CPU), K2 and K3
+DAMSM step and a Stage-B step give it and under autograd (with tiny
+Stage-C, DAMSM and Stage-B steps on the card against the CPU), K2 and K3
 (objgan_tpu_torch/csrc/roi_align.cu) at the train step's shapes and under
 autograd, and all three with every input ending at an unmapped page
 (``tools/guard_pages.py``); the K-step CUDA graph against eager steps,
@@ -12,16 +12,14 @@ nor the parity helpers, so on a GPU host it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 atol 1e-4 (another summation order); K1 in bf16 atol
-3e-2, rtol 2e-2 (a fp32 difference can round to the neighbouring bf16
-value, and the GLU rounds three times); K2/K3 in bf16 atol 1e-2, rtol
-1e-2 (fp32 sums, one rounding)."""
+The kernels are held to their twins by the rules of
+``objgan_tpu_torch/ops/twin_rules.py``."""
 
 import pytest
 import torch
 
 from objgan_tpu_torch.models.common import gn, gn_glu
-from objgan_tpu_torch.ops import groupnorm
+from objgan_tpu_torch.ops import groupnorm, twin_rules
 
 torch.set_num_threads(2)
 
@@ -82,14 +80,10 @@ def _k1_matches_twin(x, scale, bias, use_glu):
     got = groupnorm.group_norm_cuda(x, scale, bias, groups, 1e-6, use_glu)
     torch.cuda.synchronize()
     assert groupnorm.launches == before + 1
-    want = groupnorm.group_norm_reference(x, scale, bias, groups, 1e-6,
-                                          use_glu)
+    want = twin_rules.k1_twin(x, scale, bias, groups, 1e-6, use_glu)
     assert got.dtype == x.dtype and got.shape == want.shape
-    err = (got.float() - want.float()).abs()
-    if x.dtype == torch.float32:
-        assert float(err.max()) <= 1e-4
-    else:
-        assert not bool((err > 3e-2 + 2e-2 * want.float().abs()).any())
+    err, ok = twin_rules.k1(got, want, x.dtype)
+    assert ok, err
 
 
 @pytest.mark.parametrize("b,n,c,dtype,use_glu", SHAPES)
@@ -193,6 +187,8 @@ def test_k1_rejects_bad_input(dev):
 
 @pytest.mark.parametrize("make", [gn, gn_glu])
 def test_module_on_card_matches_cpu(dev, make):
+    """The module on the card (K1) against itself on the CPU (the fp32
+    twin), by K1's fp32 rule."""
     m = make(96)
     with torch.no_grad():
         m.weight.uniform_(0.5, 1.5)
@@ -200,25 +196,33 @@ def test_module_on_card_matches_cpu(dev, make):
     x = torch.randn(4, 8, 8, 96)
     want = m(x)
     got = m.to(dev)(x.to(dev))
-    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert twin_rules.k1(got, want, torch.float32)[1]
 
 
 def test_k1_function_gradient_matches_twin(dev):
     """On the card ``group_norm`` runs K1 inside ``GroupNormFunction``; its
-    gradients (dx, dscale, dbias) are the twin's, fp32 atol 1e-4."""
+    gradients against the twin's in fp64: dx by K1 backward's rule
+    (``twin_rules.k1_grad``), dscale and dbias (sums of 128 rows here) by
+    K1's fp32 rule (``twin_rules.k1``), absolute, stricter than
+    ``k1_grad``'s scaled by their magnitude."""
     for use_glu in (False, True):
         x, scale, bias = _inputs(2, 64, 96, torch.float32, dev, seed=4)
         g = torch.randn(2, 64, 48 if use_glu else 96, device=dev)
         grads = []
-        for fn in (groupnorm.group_norm, groupnorm.group_norm_reference):
-            leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+        for fn, dtype in ((groupnorm.group_norm, torch.float32),
+                          (groupnorm.group_norm_reference, torch.float64)):
+            leaves = [v.detach().to(dtype).requires_grad_()
+                      for v in (x, scale, bias)]
             before = groupnorm.launches
             y = fn(*leaves, 32, 1e-6, use_glu)
             assert (groupnorm.launches - before
                     == (fn is groupnorm.group_norm))
-            grads.append(torch.autograd.grad(y, leaves, g))
-        for got, want in zip(*grads):
-            assert float((got - want).abs().max()) <= 1e-4
+            grads.append(torch.autograd.grad(y, leaves, g.to(dtype)))
+        (dx, *params), (dx_want, *params_want) = grads
+        assert twin_rules.k1_grad("dx", dx, dx_want, torch.float32,
+                                  use_glu)[1]
+        for got, want in zip(params, params_want):
+            assert twin_rules.k1(got, want, torch.float32)[1]
 
 
 # Stage B's four K1 shapes (B * O = 160 objects of cfg/shape_coco.yml, fp32)
@@ -229,34 +233,26 @@ STAGE_B = [(160, 4096, 64), (160, 1024, 64), (160, 256, 128),
 @pytest.mark.parametrize("b,n,c", STAGE_B)
 def test_k1_gradient_at_stage_b_shapes(dev, b, n, c):
     """Under autograd at Stage B's shapes (the shape trainer's G and D):
-    K1's output and the gradients (dx, dscale, dbias) against the twin's,
-    within 1e-4 of each tensor's largest magnitude (at least 1e-4: dscale
+    K1's output against the twin in fp64 by K1's rule
+    (``twin_rules.k1``), and the gradients (dx, dscale, dbias) against
+    the twin's in fp64 by K1 backward's (``twin_rules.k1_grad``; dscale
     and dbias sum 655,360 rows here, to magnitudes of ~1e3)."""
     x, scale, bias = _inputs(b, n, c, torch.float32, dev, seed=5)
     g = torch.randn(b, n, c, device=dev)
     outs = []
-    for fn in (groupnorm.group_norm, groupnorm.group_norm_reference):
-        leaves = [v.clone().requires_grad_() for v in (x, scale, bias)]
+    for fn, dtype in ((groupnorm.group_norm, torch.float32),
+                      (groupnorm.group_norm_reference, torch.float64)):
+        leaves = [v.detach().to(dtype).requires_grad_()
+                  for v in (x, scale, bias)]
         before = groupnorm.launches
         y = fn(*leaves, 32, 1e-6, False)
         assert groupnorm.launches - before == (fn is groupnorm.group_norm)
-        outs.append((y.detach(), *torch.autograd.grad(y, leaves, g)))
-    for got, want in zip(*outs):
-        assert float((got - want).abs().max()) <= 1e-4 * max(
-            1.0, float(want.abs().max()))
-
-
-def test_shape_step_on_card_matches_cpu(dev):
-    """A tiny fp32 Stage-B step (``ShapeTrainer.grads``): K1 launched 11
-    times on the card; metrics within 1e-4 relative and every G and D
-    gradient within 1e-3 relative norm of the CPU's (the twins)."""
-    from objgan_tpu_torch.train import card_check
-
-    before = groupnorm.launches
-    r = card_check.tiny_step_on_card("shape", dev)
-    assert groupnorm.launches - before == 11
-    assert r["metric_err"] <= card_check.METRIC_RTOL == 1e-4
-    assert r["grad_err"] <= card_check.GRAD_RTOL == 1e-3, r["worst"]
+        outs.append((y.detach(), *torch.autograd.grad(y, leaves,
+                                                      g.to(dtype))))
+    (y, *grads), (y_want, *grads_want) = outs
+    assert twin_rules.k1(y, y_want, torch.float32)[1]
+    for name, got, want in zip(("dx", "dscale", "dbias"), grads, grads_want):
+        assert twin_rules.k1_grad(name, got, want, torch.float32, False)[1]
 
 
 # -- K1 backward ---------------------------------------------------------------
@@ -299,28 +295,6 @@ def _twin_vjp(x, scale, bias, use_glu, gy):
         torch.set_num_threads(threads)
 
 
-def _bwd_close(got, want, dtype, name, use_glu):
-    """dx at K1's tolerances: fp32 atol 1e-4; bf16 atol 3e-2, rtol 2e-2 (dx
-    is rounded to bf16 once, and under GLU a, g and the sigmoid are rounded
-    as the forward rounds them). dscale and dbias are fp32 sums over B * N
-    rows (to magnitudes of ~1e3 here): within 1e-4 of their largest
-    magnitude (at least 1), in both dtypes; a sum that drops or counts
-    twice a share of the rows fails that. Only under GLU in bf16, where the
-    rounded a, g and sigmoid enter every term, within K1's bf16 tolerances
-    so scaled. Largest errors measured on an H100 over these tests'
-    shapes, as a share of that magnitude: 7.9e-7 without GLU (either
-    dtype) and 5.9e-7 in fp32 with it; 3.2e-3 under GLU in bf16 (8.3e-3
-    on the calls of a coco_objgan train step)."""
-    got, want = got.double().cpu(), want.double()
-    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (3e-2, 2e-2)
-    if name != "dx":
-        if not (use_glu and dtype == torch.bfloat16):
-            atol, rtol = 1e-4, 0.0
-        atol *= max(1.0, float(want.abs().max()))
-    bad = (got - want).abs() > atol + rtol * want.abs()
-    assert not bool(bad.any()), (name, float((got - want).abs().max()))
-
-
 def _k1_bwd_matches_twin(x, scale, bias, use_glu, seed=0):
     gy = _cotangent(x, use_glu, seed + 100)
     want = _twin_vjp(x, scale, bias, use_glu, gy)
@@ -336,7 +310,8 @@ def _k1_bwd_matches_twin(x, scale, bias, use_glu, seed=0):
             if g is not None:
                 assert g.dtype == (x.dtype if name == "dx" else torch.float32)
                 assert g.shape == w.shape and g.device == x.device
-                _bwd_close(g, w, x.dtype, name, use_glu)
+                err, ok = twin_rules.k1_grad(name, g, w, x.dtype, use_glu)
+                assert ok, (name, err)
 
 
 @pytest.mark.parametrize("use_glu", [False, True])
@@ -381,7 +356,8 @@ def test_k1_backward_of_an_unaligned_slice(dev, use_glu):
                                              use_glu, gy)
     for name, g, w in zip(("dx", "dscale", "dbias"), got,
                           _twin_vjp(x, scale, bias, use_glu, gy)):
-        _bwd_close(g, w, x.dtype, name, use_glu)
+        err, ok = twin_rules.k1_grad(name, g, w, x.dtype, use_glu)
+        assert ok, (name, err)
 
 
 @pytest.mark.parametrize("b,n,c,use_glu", [
@@ -440,19 +416,31 @@ def test_k1_backward_rejects_bad_input(dev):
                                            gy, (False, False, False))
 
 
-def test_gan_step_runs_k1_backward_once_per_forward(dev):
-    """A tiny fp32 Stage-C step on the card (G, the discriminators, the
-    frozen image encoder): as many K1 backward calls as K1 forward
-    launches, and every gradient within 1e-3 relative norm of the CPU's
-    (the twins)."""
+@pytest.mark.parametrize("stage", ["gan", "damsm", "shape"])
+def test_tiny_step_on_card_matches_cpu(dev, stage):
+    """A tiny fp32 step (``grads``) of each trainer that runs K1, on the
+    card against the CPU's (the twins), through
+    ``card_check.tiny_step_on_card``: metrics within 1e-4 relative and
+    every parameter's gradient within 1e-3 relative norm; and each stage's
+    launches. Stage C (G, the discriminators, the frozen image encoder):
+    K2, K3, and as many K1 backward calls as K1 launches; DAMSM's image
+    encoder: K1 8 times; Stage B: K1 11 times."""
+    from objgan_tpu_torch.ops import roi_align
     from objgan_tpu_torch.train import card_check
 
-    before = (groupnorm.launches, groupnorm.bwd_launches)
-    r = card_check.tiny_step_on_card("gan", dev)
-    fwd = groupnorm.launches - before[0]
-    assert fwd > 0 and groupnorm.bwd_launches - before[1] == fwd
-    assert r["metric_err"] <= card_check.METRIC_RTOL
-    assert r["grad_err"] <= card_check.GRAD_RTOL, r["worst"]
+    def counts():
+        return (groupnorm.launches, groupnorm.bwd_launches,
+                roi_align.launches["fwd"], roi_align.launches["bwd"])
+
+    before = counts()
+    r = card_check.tiny_step_on_card(stage, dev)
+    k1, k1b, k2, k3 = (a - b for a, b in zip(counts(), before))
+    if stage == "gan":
+        assert k1 > 0 and k1b == k1 and k2 > 0 and k3 > 0, (k1, k1b, k2, k3)
+    else:
+        assert k1 == {"damsm": 8, "shape": 11}[stage]
+    assert r["metric_err"] <= card_check.METRIC_RTOL == 1e-4
+    assert r["grad_err"] <= card_check.GRAD_RTOL == 1e-3, r["worst"]
 
 
 def _roi_inputs(b, h, w, c, o, dtype, dev, seed=0):
@@ -464,13 +452,6 @@ def _roi_inputs(b, h, w, c, o, dtype, dev, seed=0):
     boxes[:, -1] = 0.0  # a padded (all-zero) box in every image
     boxes[0, 0] = torch.tensor([0.0, 0.0, 1.0, 1.0])  # the full frame
     return f, boxes
-
-
-def _roi_close(got, want, dtype):
-    err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
-        return float(err.max()) <= 1e-4
-    return not bool((err > 1e-2 + 1e-2 * want.float().abs()).any())
 
 
 # (B, H, W, C, O, R, dtype, q): the train step's shape (16 images, 256 px
@@ -491,8 +472,7 @@ ROI_SHAPES = [
 @pytest.mark.parametrize("b,h,w,c,o,r,dtype,q", ROI_SHAPES)
 def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype, q):
     """K2 against ``roi_align_reference`` and K3 against
-    ``roi_align_backward_reference``: fp32 atol 1e-4; bf16 atol 1e-2, rtol
-    1e-2 (fp32 sums in another order, then one rounding to bf16)."""
+    ``roi_align_backward_reference`` (``twin_rules.roi``)."""
     from objgan_tpu_torch.ops import roi_align as ra
 
     f, boxes = _roi_inputs(b, h, w, c, o, dtype, dev)
@@ -500,7 +480,7 @@ def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype, q):
     got = ra.roi_align_cuda(f, boxes, r, q)
     want = ra.roi_align_reference(f, boxes, r, q)
     assert got.dtype == dtype and got.shape == want.shape
-    assert _roi_close(got, want, dtype)
+    assert twin_rules.roi(got, want, dtype)[1]
     # the padded box returns the top-left pixel everywhere
     assert torch.equal(got[:, -1], f[:, None, None, 0, 0, :].expand_as(
         got[:, -1]))
@@ -508,7 +488,7 @@ def test_k2_k3_match_twins(dev, b, h, w, c, o, r, dtype, q):
     dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, r, q)
     dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, r, q)
     assert dfg.dtype == dtype and dfg.shape == f.shape
-    assert _roi_close(dfg, dfw, dtype)
+    assert twin_rules.roi(dfg, dfw, dtype)[1]
     assert ra.launches == {"fwd": before["fwd"] + 1,
                            "bwd": before["bwd"] + 1}
 
@@ -534,28 +514,7 @@ def test_k3_takes_a_wide_frame(dev):
     want = ra.roi_align_backward_reference(boxes, g, f.shape, torch.float32,
                                            7, 2)
     assert ra.launches == {"fwd": before["fwd"], "bwd": before["bwd"] + 1}
-    assert _roi_close(got, want, torch.float32)
-
-
-def _adversarial_boxes(dev):
-    """(2, 10, 4) boxes at the edges of K2's and K3's designs (as in
-    tests/test_torch_roi.py): image 0 the full frame, zero boxes, a
-    sub-pixel box, boxes ending on the frame, boxes reaching past it,
-    multiples of 1/32, a box wider than the frame; image 1 all ten objects
-    on one band of eight rows."""
-    first = [[0.0, 0.0, 1.0, 1.0],
-             [0.0, 0.0, 0.0, 0.0],
-             [0.5 + 0.1 / 32, 0.3 + 0.2 / 32, 0.2 / 32, 0.3 / 32],
-             [0.75, 0.5, 0.25, 0.5],
-             [0.8, -0.3, 0.6, 0.5],
-             [-0.2, 0.9, 0.4, 0.6],
-             [3 / 32, 5 / 32, 7 / 32, 9 / 32],
-             [0.25, 13 / 32, 17 / 32, 1 / 32],
-             [-0.5, -0.5, 2.0, 2.0],
-             [0.0, 0.0, 0.0, 0.0]]
-    band = [[0.08 * k, 8 / 32 + k / 320, 0.05 + 0.02 * k, 0.2]
-            for k in range(10)]
-    return torch.tensor([first, band], device=dev)
+    assert twin_rules.roi(got, want, torch.float32)[1]
 
 
 @pytest.mark.parametrize("c,dtype", [(256, torch.bfloat16),
@@ -565,15 +524,17 @@ def test_k2_k3_match_twins_on_adversarial_boxes(dev, c, dtype):
     from objgan_tpu_torch.ops import roi_align as ra
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    f = torch.randn(2, 32, 32, c, generator=gen, device=dev).to(dtype)
-    boxes = _adversarial_boxes(dev)
+    boxes = twin_rules.adversarial_boxes(dev)
+    f = torch.randn(len(boxes), 32, 32, c, generator=gen,
+                    device=dev).to(dtype)
     got = ra.roi_align_cuda(f, boxes, 7, 2)
-    assert _roi_close(got, ra.roi_align_reference(f, boxes, 7, 2), dtype)
+    assert twin_rules.roi(got, ra.roi_align_reference(f, boxes, 7, 2),
+                          dtype)[1]
     assert torch.equal(got[0, 1], f[0, 0, 0].expand_as(got[0, 1]))
     g = torch.randn(got.shape, generator=gen, device=dev).to(dtype)
     dfg = ra.roi_align_backward_cuda(boxes, g, f.shape, 7, 2)
     dfw = ra.roi_align_backward_reference(boxes, g, f.shape, dtype, 7, 2)
-    assert _roi_close(dfg, dfw, dtype)
+    assert twin_rules.roi(dfg, dfw, dtype)[1]
 
 
 def test_k2_is_bit_reproducible(dev):
@@ -596,7 +557,8 @@ def test_k2_k3_are_one_kernel_per_call(dev):
 
 def test_roi_align_autograd_on_card_matches_twin(dev):
     """``roi_align`` on a CUDA tensor: K2 forward, K3 backward, the boxes
-    without a gradient; fp32 atol 1e-4 against autograd through the twin."""
+    without a gradient; against autograd through the twin
+    (``twin_rules.roi``)."""
     from objgan_tpu_torch.ops import roi_align as ra
 
     f, boxes = _roi_inputs(2, 16, 16, 64, 5, torch.float32, dev, seed=6)
@@ -607,15 +569,15 @@ def test_roi_align_autograd_on_card_matches_twin(dev):
         y = fn(leaf, boxes, 7, 2)
         outs.append((y, torch.autograd.grad(y, leaf, g)[0]))
     (y, df), (y_want, df_want) = outs
-    assert float((y - y_want).abs().max()) <= 1e-4
-    assert float((df - df_want).abs().max()) <= 1e-4
+    assert twin_rules.roi(y, y_want, torch.float32)[1]
+    assert twin_rules.roi(df, df_want, torch.float32)[1]
 
 
 def test_kernels_launch_on_the_tensors_card(dev):
     """K1, K2 and K3 launch on the card that holds their tensors, whichever
     card is current (a data-parallel rank's tensors on ``cuda:r``): on
     every card, with the next card current. On one card the current card
-    is the tensors' own; fp32 atol 1e-4 against the twins."""
+    is the tensors' own; against the twins by ``twin_rules``."""
     from objgan_tpu_torch.ops import roi_align as ra
 
     count = torch.cuda.device_count()
@@ -629,26 +591,25 @@ def test_kernels_launch_on_the_tensors_card(dev):
             r = ra.roi_align_cuda(f, boxes, 4, 2)
             df = ra.roi_align_backward_cuda(boxes, g, f.shape, 4, 2)
         torch.cuda.synchronize(card)
-        want = groupnorm.group_norm_reference(x, scale, bias, 8, 1e-6, False)
-        assert y.device == card and float((y - want).abs().max()) <= 1e-4
-        assert float((r - ra.roi_align_reference(f, boxes, 4, 2)).abs()
-                     .max()) <= 1e-4
+        want = twin_rules.k1_twin(x, scale, bias, 8, 1e-6, False)
+        assert y.device == card
+        assert twin_rules.k1(y, want, torch.float32)[1]
+        assert twin_rules.roi(r, ra.roi_align_reference(f, boxes, 4, 2),
+                              torch.float32)[1]
         dfw = ra.roi_align_backward_reference(boxes, g, f.shape,
                                               torch.float32, 4, 2)
-        assert float((df - dfw).abs().max()) <= 1e-4
+        assert twin_rules.roi(df, dfw, torch.float32)[1]
 
 
-def test_kernel_hw_check_passes(dev, capsys):
+def test_kernel_hw_check_passes(dev):
     """``python -m objgan_tpu_torch.tools.kernel_hw_check``: K1 (fp32, bf16,
     with and without GLU) and K2 + K3 (fp32, bf16) against their plain
-    versions, at its default shapes and at a narrow one."""
+    versions, at its default shapes and at a narrow one, each check
+    passing and launching its kernels once (``kernel_hw_check.checked``)."""
     from objgan_tpu_torch.tools import kernel_hw_check
 
-    assert kernel_hw_check.main([]) == 0
-    assert kernel_hw_check.main(["--c", "64", "--o", "3"]) == 0
-    lines = capsys.readouterr().out.splitlines()
-    assert sum(ln.startswith("PASS") for ln in lines) == 12
-    assert not any(ln.startswith("FAIL") for ln in lines)
+    for argv in ([], ["--c", "64", "--o", "3"]):
+        assert kernel_hw_check.checked(argv)["passed"] == 6
 
 
 def test_device_profile_sees_the_kernels(dev):
@@ -666,38 +627,18 @@ def test_device_profile_sees_the_kernels(dev):
 
 
 def test_kernels_read_nothing_past_their_inputs(dev):
-    """K1 (both plans, the ring, the scalar paths), K2 and K3 with every
-    input ending at an unmapped page (``tools/guard_pages.py``), each
-    against its twin, in a process of its own (a fault poisons the CUDA
+    """K1 (both plans, the ring, the scalar paths), K1 backward, K2 and K3
+    with every input ending at an unmapped page, each against its twin and
+    launched once, in a process of its own (a fault poisons the CUDA
     context); and its control: a plain read one element past a guarded
-    tensor faults."""
-    import os
-    import subprocess
-    import sys
+    tensor faults (``guard_pages.checked``)."""
+    from objgan_tpu_torch.tools import guard_pages
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cmd = [sys.executable, "-m", "objgan_tpu_torch.tools.guard_pages"]
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    lines = proc.stdout.splitlines()
-    assert lines[-1].endswith("PASS"), lines[-5:]
-    regimes = {ln.split(": ", 1)[1].split(" cluster")[0] for ln in lines
-               if ln.startswith("PASS K1")}
-    assert regimes == {"resident", "streaming"}
-    assert any(ln.startswith("PASS K2") for ln in lines)
-    assert any(ln.startswith("PASS K3") for ln in lines)
-    control = subprocess.run(cmd + ["--control"], cwd=root,
-                             capture_output=True, text=True, timeout=600)
-    assert control.returncode != 0
-    assert "illegal memory access" in control.stderr
+    checks = guard_pages.checked()["checks"]
+    assert len(checks) == sum(guard_pages.LAUNCHES.values())
 
 
 # -- K train steps as one CUDA-graph replay (TRAIN.STEPS_PER_EXECUTION) --------
-
-KERNEL_NAMES = {"K1": "gn_fused_kernel", "K1 backward": "gn_bwd_kernel",
-                "K2": "roi_fwd_kernel", "K3": "roi_bwd_kernel"}
-
 
 def _tiny_cfg():
     from objgan_tpu_torch.core.config import tiny_test_config
@@ -729,40 +670,20 @@ def test_k_step_graph_equals_eager_steps(dev, stage):
         "metric_err"]
 
 
-_AGREEMENT = """
-import json, sys
-import torch
-from objgan_tpu_torch.core.config import tiny_test_config
-from objgan_tpu_torch.core.precision import true_fp32
-from objgan_tpu_torch.train import card_check
-true_fp32()
-torch.use_deterministic_algorithms(True)
-cfg = tiny_test_config().merged({"DTYPE": sys.argv[1]})
-print(json.dumps({s: card_check.agreement(card_check.graph_against_eager(
-    s, cfg, 2)) for s in json.loads(sys.argv[2])}))
-"""
-
-
 @pytest.fixture(scope="module")
 def deterministic_agreement():
     """The four trainers' replays against eager steps at the tiny config
-    in bf16, in a process under ``torch.use_deterministic_algorithms``
-    with cuBLAS's workspace fixed before its first use."""
-    import json
-    import os
-    import subprocess
-    import sys
+    in bf16, K = 2, in a process under
+    ``torch.use_deterministic_algorithms``
+    (``card_check.deterministic_agreement``)."""
+    from objgan_tpu_torch.core.config import tiny_test_config
+    from objgan_tpu_torch.train import card_check
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
-               PYTHONPATH=root)
-    proc = subprocess.run([sys.executable, "-c", _AGREEMENT, "bfloat16",
-                           json.dumps(K_STAGES)], cwd=root, env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    tiny = tiny_test_config().merged({"DTYPE": "bfloat16"})
+    return card_check.deterministic_agreement(
+        {stage: tiny for stage in K_STAGES}, 2)
 
 
 @pytest.mark.parametrize("stage", K_STAGES)
@@ -800,10 +721,11 @@ def test_k_step_graph_holds_the_kernels(dev):
     assert all(per_step.values()), per_step
     kernels, nodes, found = graph_kernel_nodes(
         r["graph"].multi_step().graph().raw_cuda_graph(),
-        list(KERNEL_NAMES.values()))
+        list(twin_rules.KERNEL_NAMES.values()))
     want = {k: 2 * v for k, v in per_step.items()}
     assert r["captured"] == want
-    assert {k: found[name] for k, name in KERNEL_NAMES.items()} == want
+    assert {k: found[name]
+            for k, name in twin_rules.KERNEL_NAMES.items()} == want
     assert sum(want.values()) < kernels <= nodes
 
 

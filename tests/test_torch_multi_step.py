@@ -492,3 +492,29 @@ def test_profile_feed_k_stack_line(tmp_path, capsys):
     one_mb = float(out.split(" MB -> ")[0].rsplit(" ", 1)[1])
     assert abs(k_mb - 2 * one_mb) < 0.011  # two wire batches, rounded
     assert "3. K=2 stack host->device (cpu) rep 0" in out
+
+
+@pytest.mark.parametrize("yml", [None, "coco_objgan.yml", "damsm_coco.yml",
+                                 "shape_coco.yml", "tiny"])
+def test_agreement_process_reads_the_config_it_was_given(yml):
+    """``card_check.deterministic_agreement`` hands each stage's config to
+    its process as ``dataclasses.asdict``, and the process merges it over
+    ``Config()``: the configs of ``chip_smoke.py``'s four trainers and the
+    card test's tiny one arrive equal."""
+    import dataclasses
+    import json
+
+    from objgan_tpu_torch.core.config import (Config, cfg_from_file,
+                                              tiny_test_config)
+
+    cfg = (Config() if yml is None else
+           tiny_test_config().merged({"DTYPE": "bfloat16"}) if yml == "tiny"
+           else cfg_from_file(os.path.join(REPO, "cfg", yml)))
+    sent = json.loads(json.dumps(dataclasses.asdict(cfg)))
+    assert Config().merged(sent) == cfg
+
+
+def test_agreement_process_without_stages():
+    """The process starts, takes its arguments and prints its one JSON line
+    (on the CPU no stage can be captured)."""
+    assert card_check.deterministic_agreement({}, 2) == {}

@@ -227,9 +227,9 @@ def test_shape_step_on_cpu_moves_g_and_d_and_launches_nothing():
 @pytest.mark.parametrize("stage,params", [("gan", 117), ("damsm", 33),
                                           ("shape", 35)])
 def test_tiny_step_comparison_on_the_cpu(stage, params):
-    """``train/card_check.py``, which ``chip_smoke.py`` and the card tests
-    run against the CPU, compares every metric and gradient: on the CPU
-    against itself it reads no error."""
+    """``train/card_check.py``, which the card tests run against the CPU,
+    compares every metric and gradient: on the CPU against itself it reads
+    no error."""
     from objgan_tpu_torch.train import card_check
 
     r = card_check.tiny_step_on_card(stage, "cpu")
